@@ -1,4 +1,4 @@
-"""directtrajopt_tpu — TPU-native direct trajectory optimization.
+"""directtrajopt_tpu — batched on-device direct trajectory optimization.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of
 harmoniqs/DirectTrajOpt.jl: direct transcription of optimal-control problems

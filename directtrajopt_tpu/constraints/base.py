@@ -3,7 +3,7 @@
 The reference splits constraints into *linear* ones (lowered directly to MOI
 variable/affine constraints, `/root/reference/src/solvers/constrain.jl`) and
 *nonlinear* ones (evaluated through the NLP callbacks,
-`src/constraints/_constraints.jl:44-64`). The TPU-native solver has no MOI:
+`src/constraints/_constraints.jl:44-64`). The on-device solver has no MOI:
 every linear constraint lowers into one canonical structure consumed by the
 interior-point method directly:
 

@@ -45,8 +45,8 @@ def stack_residuals(integrator, layout: Layout, zmat: jax.Array) -> jax.Array:
     """Evaluate all window residuals: ``(N-1, x_dim)``."""
     import os
 
-    # integrator-provided closed-form stack (bilinear expv action on lanes —
-    # the line-search trial grid is the hottest caller; tools/profile_iter.py)
+    # integrator-provided closed-form stack (bilinear expv action — the
+    # line-search trial grid is the hottest caller)
     custom = getattr(integrator, "residuals_stacked", None)
     if custom is not None and os.environ.get("DTX_RES_KERNEL", "1") != "0":
         out = custom(layout, zmat)
@@ -59,18 +59,7 @@ def stack_residuals(integrator, layout: Layout, zmat: jax.Array) -> jax.Array:
 
 
 def stack_residuals_l1(integrator, layout: Layout, zmat: jax.Array):
-    """``Σ|residual|`` over all windows — scalar.
-
-    Routes through the integrator's lane-space reduction op when available
-    (bilinear `residuals_l1_stacked`: the reduce happens before the batched
-    trial tensor leaves lane layout); otherwise reduces the generic stack."""
-    import os
-
-    custom = getattr(integrator, "residuals_l1_stacked", None)
-    if custom is not None and os.environ.get("DTX_RES_KERNEL", "1") != "0":
-        out = custom(layout, zmat)
-        if out is not None:
-            return out
+    """``Σ|residual|`` over all windows — scalar."""
     return jnp.sum(jnp.abs(stack_residuals(integrator, layout, zmat)))
 
 
@@ -136,7 +125,7 @@ def _read_cols(integrator, layout: Layout) -> np.ndarray | None:
     Hessian. Measured caveat: for the *small* z_k blocks of the Riccati path
     (d≈11) the generic full-width AD is FASTER — XLA batches the dual-number
     tangents into one widened pass, while the embedding form adds unfused
-    ops (CPU B=8: 22.0 → 26.7 ms/IPM-iteration; TPU B=256: 8.3 → ~10.5).
+    ops (CPU B=8: 22.0 → 26.7 ms/IPM-iteration).
     The restriction pays off on the 2·dim dense *window* path, where the
     tangent count doubles. Hence the two gates below."""
     import os
@@ -177,9 +166,8 @@ def _window_cols(integrator, layout: Layout) -> np.ndarray | None:
 def _embedding(cols: np.ndarray, dim: int, dtype):
     """Static one-hot embedding ``E (n_read, dim)`` and keep-mask ``(dim,)``.
 
-    Scatters/gathers with index arrays lower to serialized scatter ops on
-    TPU (measured +2.5 ms/IPM-iteration at B=256); expressing the same
-    restriction as tiny one-hot matmuls keeps everything on the fast path.
+    Scatters/gathers with index arrays lower to scatter ops; expressing the
+    same restriction as tiny one-hot matmuls keeps everything fusible.
     """
     E = np.zeros((len(cols), dim))
     E[np.arange(len(cols)), cols] = 1.0
@@ -198,8 +186,7 @@ def stack_jacobians_zk(integrator, layout: Layout, zmat: jax.Array) -> jax.Array
     import os
 
     # integrator-provided closed-form stack (e.g. the bilinear expv tangent
-    # recurrences, Pallas batch-on-lanes on TPU) — the generic jacfwd path
-    # below is the profiled prepare bottleneck (tools/profile_iter.py)
+    # recurrences) in place of the generic jacfwd path below
     custom = getattr(integrator, "jacobians_zk_stacked", None)
     if custom is not None and os.environ.get("DTX_ZK_KERNEL", "1") != "0":
         out = custom(layout, zmat)

@@ -151,8 +151,8 @@ class BilinearIntegrator:
 
         Hxt = -jax.jacfwd(ETm)(th0)  # (x_dim, n_th)
         Htt = -jax.hessian(mEx)(th0)  # (n_th, n_th)
-        # scatter into (d, d) via static one-hot embeddings (index-array
-        # scatters serialize on TPU; these are tiny matmuls instead)
+        # scatter into (d, d) via static one-hot embeddings (tiny matmuls
+        # instead of index-array scatters)
         Ex = np.zeros((cs_x.stop - cs_x.start, d))
         Ex[np.arange(cs_x.stop - cs_x.start), np.arange(cs_x.start, cs_x.stop)] = 1.0
         Et = np.zeros((len(th_cols), d))
@@ -164,19 +164,12 @@ class BilinearIntegrator:
 
     def residuals_stacked(self, layout: Layout, zmat: jax.Array):
         """Closed-form stacked residuals ``x_{k+1} − E(u_k,Δt_k)x_k`` for all
-        windows — routes the line-search trial-grid evaluations (the hottest
-        c_eq consumer) through the batch-on-lanes chain in
-        ``ops/expv_kernel.py``. None when ineligible.
+        windows (``ops/expv_kernel.py``) — the line-search trial grid is the
+        hottest c_eq consumer. None when ineligible.
 
-        f32-only by dtype gate: the kernel family is f32 (lane eligibility),
-        and the f64 call sites — the refine-residuals passes that
-        ``jax.vjp`` c_eq in ``ipm.py`` — fall back to the generic
-        differentiable path via this None return. The two paths COMPOSE in
-        one solve: f32 trial-grid evaluations ride the kernel while the f64
-        refinement residuals take the AD-capable path (regression:
-        ``tests/test_expv_kernel.py::test_kernel_jaxpr_x64_clean`` — the
-        kernels must stay i64/f64-free under jax_enable_x64 for this mix to
-        compile on TPU)."""
+        f32 only: f64 call sites (the refine-residuals passes that
+        ``jax.vjp`` c_eq in ``ipm.py``, the f64 goldens) keep the generic
+        per-window path."""
         if (
             self.G_fn is not None
             or self.method != "taylor"
@@ -200,39 +193,9 @@ class BilinearIntegrator:
             u, dt, x, xn,
         )
 
-    def residuals_l1_stacked(self, layout: Layout, zmat: jax.Array):
-        """``Σ|residual|`` over all windows through the lane-space reduction
-        op (`ops/expv_kernel.make_residual_l1`) — the line-search θ term
-        without materializing the per-trial residual tensor (which forced a
-        B-major relayout, ~105 µs/iter at B=512). None when ineligible,
-        same gates as :meth:`residuals_stacked`."""
-        if (
-            self.G_fn is not None
-            or self.method != "taylor"
-            or zmat.dtype != jnp.float32
-        ):
-            return None
-        from ..ops.expv_kernel import make_residual_l1
-
-        dtype = zmat.dtype
-        cs_x = layout.comp_slice(self.x_name)
-        cs_u = layout.comp_slice(self.u_name)
-        x = zmat[:-1, cs_x]
-        xn = zmat[1:, cs_x]
-        u = zmat[:-1, cs_u]
-        if layout.has_free_time:
-            dt = zmat[:-1, layout.offsets[layout.timestep]]
-        else:
-            dt = jnp.full((zmat.shape[0] - 1,), layout.timestep, dtype=dtype)
-        return make_residual_l1(self.taylor_order)(
-            self.G_drift.astype(dtype), self.G_drives.astype(dtype),
-            u, dt, x, xn,
-        )
-
     def jacobians_zk_stacked(self, layout: Layout, zmat: jax.Array):
-        """Closed-form stacked ``∂residual/∂z_k`` — the batch-on-lanes fast
-        path for the IPM's dominant prepare cost (see ``ops/expv_kernel.py``;
-        profiled at 50% of the whole iteration under generic jacfwd).
+        """Closed-form stacked ``∂residual/∂z_k`` (``ops/expv_kernel.py``) in
+        place of generic window AD in the IPM's prepare stage.
         Returns None when ineligible (callable G, Padé method) so the caller
         falls back to generic window AD."""
         import numpy as np
@@ -256,7 +219,7 @@ class BilinearIntegrator:
             self.G_drift.astype(dtype), self.G_drives.astype(dtype), u, dt, x
         )  # (N-1, xd, n_th) = ∂(E x)/∂(x, u[, Δt])
         # scatter the window columns into z_k width via a static one-hot
-        # (index scatters serialize on TPU; this is one tiny matmul)
+        # (one tiny matmul instead of an index scatter)
         cols = list(range(cs_x.start, cs_x.stop)) + list(
             range(cs_u.start, cs_u.stop)
         )

@@ -169,7 +169,7 @@ def td_integration_error(integ, layout: Layout, zmat: jax.Array) -> jax.Array:
     The reference integrates the TD residual with adaptive Tsit5 under user
     tolerances (`time_dependent_bilinear_integrator.jl:70-132`); adaptive
     stepping is data-dependent control flow a jitted lockstep batch cannot
-    afford, so the TPU-native scheme is a STATIC ``n_steps`` fixed-step RK4
+    afford, so the scheme here is a STATIC ``n_steps`` fixed-step RK4
     validated (and, via :func:`tune_n_steps`, chosen) at setup time. This
     returns the classic step-doubling estimate for that validation: with
     RK4's O(h⁴) local order, ``err ≈ ‖y_n − y_2n‖∞ / 15`` per window
@@ -205,7 +205,7 @@ def tune_n_steps(
     """Pick the smallest power-of-two multiple of ``n_steps`` meeting ``atol``.
 
     Host-side doubling loop over the jittable step-doubling estimate —
-    the TPU analog of the reference's adaptive-tolerance ODE solve
+    the static-shape analog of the reference's adaptive-tolerance ODE solve
     (`time_dependent_bilinear_integrator.jl:70-132`, default reltol 1e-6 /
     abstol 1e-6; its own integrator tests accept atol=1e-3 agreement,
     `:248-269`): adaptivity runs ONCE at problem-setup time on the initial

@@ -6,7 +6,7 @@ array-valued fields are leaves (traceable / vmappable / shardable), while
 configuration fields marked with ``static_field()`` live in the treedef and
 participate in jit-cache keys.
 
-This is the TPU-native replacement for the reference's Julia structs + multiple
+This is the JAX replacement for the reference's Julia structs + multiple
 dispatch (cf. /root/reference/src/common_interface.jl:8-23): instead of
 mutating structs through an abstract interface, components are immutable
 pytrees consumed by pure functions, so an entire problem — including its

@@ -118,7 +118,7 @@ def TerminalObjective(
 def knot_hvp(obj: KnotPointObjective, layout: Layout, z, g, k, v):
     """Matrix-free per-knot Hessian-vector product ``∇²_z cost_at_knot · v``.
 
-    The TPU-native realization of the reference's declarable ``KnotHVP``
+    The on-device realization of the reference's declarable ``KnotHVP``
     capability (`src/objectives/knot_hvp.jl`): on-device, exact, and free —
     forward-over-reverse through the knot cost.
     """

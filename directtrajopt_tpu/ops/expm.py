@@ -3,7 +3,7 @@
 The reference computes dynamics residuals through a Krylov matrix-exponential
 action (`expv` from ExponentialAction.jl,
 /root/reference/src/integrators/bilinear_integrator.jl:81) and differentiates
-it with ForwardDiff. On TPU the state dimensions of interest are small (4–64),
+it with ForwardDiff. The state dimensions of interest are small (4–64),
 so a dense scaling-and-squaring Padé approximant with a *static* number of
 squarings is both faster and XLA-friendly: no data-dependent control flow, a
 fixed chain of small matmuls that vmaps over knots and scenario batches, and
@@ -43,7 +43,7 @@ def expm_pade(A: jax.Array, squarings: int = 4) -> jax.Array:
     ``squarings`` is static: the result is exact to working precision whenever
     ``norm(A) / 2**squarings ≲ 5`` (the Padé-13 accuracy radius), which the
     default 8 satisfies for any sane ``Δt·G``. All ops are small dense matmuls
-    so the whole thing fuses and batches on the MXU.
+    so the whole thing fuses and batches.
     """
     dtype = A.dtype
     scale = jnp.asarray(2.0**-squarings, dtype)
@@ -69,16 +69,7 @@ def expm_pade(A: jax.Array, squarings: int = 4) -> jax.Array:
         + b[0] * eye
     )
     # r = (V - U)^{-1} (V + U)
-    M = V - U
-    if A.dtype == jnp.float64 and jax.default_backend() == "tpu":
-        # TPU XLA implements LU only for f32/c64; f64 runs (emulated) for
-        # matmul/Cholesky. M is near b₀·I after scaling (‖A/2^s‖ ≲ 1), so the
-        # normal-equations Cholesky is benign despite squaring the condition.
-        G = M.T @ M
-        L = jnp.linalg.cholesky(G)
-        R = jax.scipy.linalg.cho_solve((L, True), M.T @ (V + U))
-    else:
-        R = jnp.linalg.solve(M, V + U)
+    R = jnp.linalg.solve(V - U, V + U)
     for _ in range(squarings):
         R = R @ R
     return R

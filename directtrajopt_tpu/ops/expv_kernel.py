@@ -1,70 +1,30 @@
-"""Batch-on-lanes window Jacobians for the bilinear integrator.
+"""Closed-form bilinear window Jacobians and residuals.
 
-The op-level TPU profile (tools/profile_iter.py) shows the IPM iteration is
-DOMINATED by the prepare-stage window AD of the bilinear dynamics: generic
-``jacfwd`` through the expv Taylor chain materializes a dozen intermediates
-shaped ``[B, N-1, d, x_dim]`` whose minor dims are the TINY matrix dims — the
-TPU tile (…, 8, 128) pads ``x_dim``/``d`` up to the lane width, an ~11–32×
-memory-traffic waste that costs ~4.3 of the 8.6 ms iteration marginal at
-B=512 (N=51 bilinear benchmark, 50% of the whole iteration).
-
-This module computes the same Jacobian block closed-form:
+The IPM's prepare stage needs, for every window, the Jacobian block
 
     J = ∂(E(u,Δt)·x)/∂(x, u, Δt),   E = Taylor_m(Δt·G(u)) action
 
-as the hand-derived tangent recurrences of the Horner chain
-``y ← x + (A·y)/k`` (identical values to ``jax.jacfwd`` of
-``ops.expm.expv_taylor``, which is what the generic path differentiates):
+Generic ``jacfwd`` through the expv Taylor chain materializes a dozen
+intermediates per window. Here it is computed closed-form as the
+hand-derived tangent recurrences of the Horner chain ``y ← x + (A·y)/k``
+(identical values to ``jax.jacfwd`` of ``ops.expm.expv_taylor``, which is
+what the generic path differentiates):
 
     Ė-col chains (∂/∂x = E),   ẏ_m = (Ȧ_m y + A ẏ_m)/k  (∂/∂u_m),
     ẏ_t = (G y + A ẏ_t)/k  (∂/∂Δt)
 
-and runs them **batch-on-lanes** in a Pallas kernel: the scenario batch is
-the lane (minor) dimension in 128-lane chunks, every small-matrix op is an
-unrolled broadcast-multiply-sum over full lanes — zero tile padding on the
-hot loop. Entry is a ``custom_vmap``: unbatched calls run the closed-form
-XLA recurrence; vmapped calls hit the kernel on TPU/f32 (XLA fallback
-otherwise). Same pattern as ``ops/riccati_kernel.py``.
+plus the primal chain alone for the line search's residuals. Both are plain
+``jnp`` recurrences: under ``vmap`` (the batched solve) XLA fuses each
+Horner step into a few loop fusions, and nothing is sequential across knots.
 """
 
 from __future__ import annotations
 
 import functools
 
-import numpy as np
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from directtrajopt_tpu.utils.jitcache import jit_cached
-
-__all__ = [
-    "make_window_jac",
-    "window_jac_eligible",
-    "make_residual_action",
-]
-
-_LANES = 128
-_VMEM_BUDGET = 10 * 1024 * 1024
-# Mosaic double-buffers in/out blocks when the lane grid has >1 step; raise
-# the per-kernel scoped-vmem cap past XLA's 16 MiB default (see
-# riccati_kernel._VMEM_LIMIT for the full rationale).
-_VMEM_LIMIT = int(100 * 1024 * 1024)
-
-
-def _tpu_params(interpret):
-    if interpret:
-        return {}
-    return {
-        "compiler_params": pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT)
-    }
-
-
-# --------------------------------------------------------------------------- #
-# closed-form tangent recurrences (unbatched XLA path + correctness anchor)
-# --------------------------------------------------------------------------- #
+__all__ = ["make_window_jac", "make_residual_action"]
 
 
 def _window_jac_xla(order, free_time, Gd, Gv, u, dt, x):
@@ -103,183 +63,6 @@ def _window_jac_xla(order, free_time, Gd, Gv, u, dt, x):
     return jnp.concatenate(parts, axis=2)
 
 
-# --------------------------------------------------------------------------- #
-# Pallas kernel: lanes = scenario batch
-# --------------------------------------------------------------------------- #
-
-
-def _kernel(order, xd, n_dr, free_time, gd_ref, gv_ref, u_ref, dt_ref, x_ref,
-            out_ref):
-    """Everything is an unrolled op on 2-D ``(K, B)`` slices — lanes always
-    full, shapes Mosaic handles natively (N-D broadcasts/reduces over tiny
-    sublane dims blow up the Mosaic compile)."""
-    dtype = x_ref.dtype
-    K = x_ref.shape[0]
-    B = x_ref.shape[-1]
-    dt = dt_ref[:]  # (K, B)
-    us = [u_ref[:, m, :] for m in range(n_dr)]  # (K, B) each
-    xs = [x_ref[:, j, :] for j in range(xd)]  # (K, B) each
-
-    def bc(row):  # (B,) constant-in-k entry -> (K, B)
-        return jnp.broadcast_to(row[None, :], (K, B))
-
-    # per-entry system matrices as (K, B) lane vectors
-    G = [
-        [
-            sum(
-                (us[m] * bc(gv_ref[m, i, j, :]) for m in range(n_dr)),
-                start=bc(gd_ref[i, j, :]),
-            )
-            for j in range(xd)
-        ]
-        for i in range(xd)
-    ]
-    A = [[dt * G[i][j] for j in range(xd)] for i in range(xd)]
-
-    def mv(M, v):
-        return [
-            sum((M[i][j] * v[j] for j in range(1, xd)), start=M[i][0] * v[0])
-            for i in range(xd)
-        ]
-
-    zero = jnp.zeros((K, B), dtype)
-    y = xs
-    Ecols = [
-        [jnp.ones((K, B), dtype) if i == c else zero for i in range(xd)]
-        for c in range(xd)
-    ]
-    yd_u = [[zero] * xd for _ in range(n_dr)]
-    yd_t = [zero] * xd
-    for k in range(order, 0, -1):
-        # np scalar, NOT a Python float: under jax_enable_x64 a weak Python
-        # float materializes as an f64 constant inside the Mosaic module,
-        # which fails to legalize ("func.return") even though every array is
-        # f32 — the kernel must be x64-config-independent
-        inv_k = np.float32(1.0 / k)
-        new_u = []
-        for m in range(n_dr):
-            Gvy = [
-                sum(
-                    (bc(gv_ref[m, i, j, :]) * y[j] for j in range(1, xd)),
-                    start=bc(gv_ref[m, i, 0, :]) * y[0],
-                )
-                for i in range(xd)
-            ]
-            Ay = mv(A, yd_u[m])
-            new_u.append(
-                [(dt * Gvy[i] + Ay[i]) * inv_k for i in range(xd)]
-            )
-        yd_u = new_u
-        if free_time:
-            Gy = mv(G, y)
-            Ay = mv(A, yd_t)
-            yd_t = [(Gy[i] + Ay[i]) * inv_k for i in range(xd)]
-        Ecols = [
-            [
-                (np.float32(1.0) if i == c else np.float32(0.0)) + Av_i * inv_k
-                for i, Av_i in enumerate(mv(A, Ecols[c]))
-            ]
-            for c in range(xd)
-        ]
-        Ay = mv(A, y)
-        y = [xs[i] + Ay[i] * inv_k for i in range(xd)]
-
-    for c in range(xd):
-        for i in range(xd):
-            out_ref[:, i, c, :] = Ecols[c][i]
-    for m in range(n_dr):
-        for i in range(xd):
-            out_ref[:, i, xd + m, :] = yd_u[m][i]
-    if free_time:
-        for i in range(xd):
-            out_ref[:, i, xd + n_dr, :] = yd_t[i]
-
-
-def _vmem_bytes(K, xd, n_dr, Bt):
-    n_th = xd + n_dr + 1
-    per_lane = K * (
-        2 * xd * xd  # G, A
-        + xd * (xd + n_dr + 2)  # chains
-        + xd * xd  # matvec temp
-        + xd * n_th  # output
-        + n_dr + 2 + xd  # u, dt, x
-    ) + (n_dr + 1) * xd * xd
-    return 4 * Bt * per_lane
-
-
-def window_jac_eligible(K, xd, n_dr, dtype) -> bool:
-    if dtype != jnp.float32:
-        return False
-    if xd < 1 or xd > 8 or n_dr > 8 or K < 1:
-        return False
-    return _vmem_bytes(K, xd, n_dr, _LANES) <= _VMEM_BUDGET
-
-
-def _pad_batch(x, pad):
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
-    return x
-
-
-def _lane_spec(shape, chunk):
-    """BlockSpec slicing only the minor (lane) axis into ``chunk`` blocks."""
-    nd = len(shape)
-    block = shape[:-1] + (chunk,)
-    # np.int32 zeros, not Python ints: under jax_enable_x64 literal ints in
-    # the index map trace as i64 and the Mosaic module fails to legalize
-    return pl.BlockSpec(
-        block,
-        lambda c, _nd=nd: (np.int32(0),) * (_nd - 1) + (c,),
-        memory_space=pltpu.VMEM,
-    )
-
-
-def _window_jac_pallas(order, free_time, Gd, Gv, u, dt, x, *, interpret=False):
-    """Batched window-Jacobian stack — one pallas_call with the lane axis
-    gridded into 128-wide blocks (a lax.map over chunks would stack results
-    through dynamic_update_slice ops, measured ~0.1 ms/iter of pure staging
-    at B=512)."""
-    Bn, K, xd = x.shape
-    n_dr = Gv.shape[1]
-    n_th = xd + n_dr + (1 if free_time else 0)
-    dtype = x.dtype
-    chunk = _LANES if not interpret else min(_LANES, max(8, Bn))
-    pad = (-Bn) % chunk
-    Gd, Gv, u, dt, x = (_pad_batch(a, pad) for a in (Gd, Gv, u, dt, x))
-    Bp = Bn + pad
-    ins = [
-        jnp.transpose(Gd, (1, 2, 0)),  # (xd, xd, Bp)
-        jnp.transpose(Gv, (1, 2, 3, 0)),  # (n_dr, xd, xd, Bp)
-        jnp.transpose(u, (1, 2, 0)),  # (K, n_dr, Bp)
-        jnp.transpose(dt, (1, 0)),  # (K, Bp)
-        jnp.transpose(x, (1, 2, 0)),  # (K, xd, Bp)
-    ]
-    out_t = pl.pallas_call(
-        functools.partial(_kernel, order, xd, n_dr, free_time),
-        grid=(Bp // chunk,),
-        in_specs=[_lane_spec(a.shape, chunk) for a in ins],
-        out_specs=_lane_spec((K, xd, n_th, Bp), chunk),
-        out_shape=jax.ShapeDtypeStruct((K, xd, n_th, Bp), dtype),
-        **_tpu_params(interpret),
-        interpret=interpret,
-    )(*ins)
-    return jnp.transpose(out_t, (3, 0, 1, 2))[:Bn]  # (Bn, K, xd, n_th)
-
-
-# --------------------------------------------------------------------------- #
-# custom_vmap entry
-# --------------------------------------------------------------------------- #
-
-
-def _bcast(x, batched, axis_size):
-    return x if batched else jnp.broadcast_to(x, (axis_size,) + x.shape)
-
-
-# --------------------------------------------------------------------------- #
-# residual action: xn − E(u,Δt)x — the line-search trial-grid hot path
-# --------------------------------------------------------------------------- #
-
-
 def _res_xla(order, Gd, Gv, u, dt, x, xn):
     """(K, xd) bilinear dynamics residuals, one instance (trial or lane)."""
     G = Gd[None] + jnp.einsum("km,mij->kij", u, Gv)
@@ -290,208 +73,17 @@ def _res_xla(order, Gd, Gv, u, dt, x, xn):
     return xn - y
 
 
-def _res_kernel(order, xd, n_dr, gd_ref, gv_ref, u_ref, dt_ref, x_ref, xn_ref,
-                out_ref):
-    """Primal Horner chain on 2-D (K, B) slices — lanes = flattened
-    (problem × trial) instances."""
-    dtype = x_ref.dtype
-    K = x_ref.shape[0]
-    B = x_ref.shape[-1]
-    dt = dt_ref[:]
-    us = [u_ref[:, m, :] for m in range(n_dr)]
-    xs = [x_ref[:, j, :] for j in range(xd)]
-
-    def bc(row):
-        return jnp.broadcast_to(row[None, :], (K, B))
-
-    A = [
-        [
-            dt
-            * sum(
-                (us[m] * bc(gv_ref[m, i, j, :]) for m in range(n_dr)),
-                start=bc(gd_ref[i, j, :]),
-            )
-            for j in range(xd)
-        ]
-        for i in range(xd)
-    ]
-    y = xs
-    for k in range(order, 0, -1):
-        inv_k = np.float32(1.0 / k)  # see _kernel: x64-safe scalar constant
-        y = [
-            xs[i]
-            + sum((A[i][j] * y[j] for j in range(1, xd)), start=A[i][0] * y[0])
-            * inv_k
-            for i in range(xd)
-        ]
-    for i in range(xd):
-        out_ref[:, i, :] = xn_ref[:, i, :] - y[i]
-
-
-def _res_pallas(order, Gd, Gv, u, dt, x, xn, *, interpret=False):
-    """Batched residual action — lane axis gridded into 128-wide blocks
-    (see :func:`_window_jac_pallas` on why not lax.map chunking)."""
-    Bn, K, xd = x.shape
-    n_dr = Gv.shape[1]
-    dtype = x.dtype
-    chunk = _LANES if not interpret else min(_LANES, max(8, Bn))
-    pad = (-Bn) % chunk
-    Gd, Gv, u, dt, x, xn = (
-        _pad_batch(a, pad) for a in (Gd, Gv, u, dt, x, xn)
-    )
-    Bp = Bn + pad
-    ins = [
-        jnp.transpose(Gd, (1, 2, 0)),
-        jnp.transpose(Gv, (1, 2, 3, 0)),
-        jnp.transpose(u, (1, 2, 0)),
-        jnp.transpose(dt, (1, 0)),
-        jnp.transpose(x, (1, 2, 0)),
-        jnp.transpose(xn, (1, 2, 0)),
-    ]
-    out_t = pl.pallas_call(
-        functools.partial(_res_kernel, order, xd, n_dr),
-        grid=(Bp // chunk,),
-        in_specs=[_lane_spec(a.shape, chunk) for a in ins],
-        out_specs=_lane_spec((K, xd, Bp), chunk),
-        out_shape=jax.ShapeDtypeStruct((K, xd, Bp), dtype),
-        **_tpu_params(interpret),
-        interpret=interpret,
-    )(*ins)
-    return jnp.transpose(out_t, (2, 0, 1))[:Bn]
-
-
-def _res_xla_vmapped(order, Gd, Gv, u, dt, x, xn):
-    return jax.vmap(functools.partial(_res_xla, order))(Gd, Gv, u, dt, x, xn)
-
-
-def _window_jac_xla_vmapped(order, free_time, Gd, Gv, u, dt, x):
-    return jax.vmap(functools.partial(_window_jac_xla, order, free_time))(
-        Gd, Gv, u, dt, x
-    )
-
-
-def _res_batch_impl(order, use_pallas, Gd, Gv, u, dt, x, xn):
-    """Batched (lane-axis-leading) residual stack, kernel-routed."""
-    _, K, xd = x.shape
-    n_dr = Gv.shape[1]
-    on_tpu = jax.default_backend() == "tpu"
-    if use_pallas == "interpret":
-        return jit_cached(_res_pallas, order, interpret=True)(
-            Gd, Gv, u, dt, x, xn
-        )
-    if (
-        use_pallas == "auto"
-        and on_tpu
-        and window_jac_eligible(K, xd, n_dr, x.dtype)
-    ):
-        return jit_cached(_res_pallas, order)(Gd, Gv, u, dt, x, xn)
-    return jit_cached(_res_xla_vmapped, order)(Gd, Gv, u, dt, x, xn)
+@functools.lru_cache(maxsize=None)
+def make_residual_action(order: int):
+    """Residual op ``fn(Gd, Gv, u, dt, x, xn) -> (K, xd)`` for one order."""
+    return functools.partial(_res_xla, order)
 
 
 @functools.lru_cache(maxsize=None)
-def make_residual_action(order: int, use_pallas: str = "auto"):
-    """Two-level custom_vmap residual op: the line-search trial grid vmaps
-    residual evaluation INSIDE the per-problem solve, and solve_batch vmaps
-    over problems OUTSIDE — the first vmap re-wraps into a batched op whose
-    own vmap rule flattens (problems × trials) into one lane axis for the
-    Pallas chain. Unbatched signature: ``fn(Gd, Gv, u, dt, x, xn) -> (K, xd)``.
-    """
-    from jax.custom_batching import custom_vmap
+def make_window_jac(order: int, free_time: bool):
+    """Window-Jacobian op for one (order, free_time).
 
-    @custom_vmap
-    def res_batched(Gd, Gv, u, dt, x, xn):
-        return _res_batch_impl(order, use_pallas, Gd, Gv, u, dt, x, xn)
-
-    @res_batched.def_vmap
-    def _rule_b(axis_size, in_batched, *args):
-        args = [_bcast(a, bt, axis_size) for a, bt in zip(args, in_batched)]
-        flat = [a.reshape((-1,) + a.shape[2:]) for a in args]
-        out = _res_batch_impl(order, use_pallas, *flat)
-        return out.reshape((axis_size, -1) + out.shape[1:]), True
-
-    @custom_vmap
-    def residual_action(Gd, Gv, u, dt, x, xn):
-        return _res_xla(order, Gd, Gv, u, dt, x, xn)
-
-    @residual_action.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [_bcast(a, bt, axis_size) for a, bt in zip(args, in_batched)]
-        return res_batched(*args), True
-
-    return residual_action
-
-
-@functools.lru_cache(maxsize=None)
-def make_residual_l1(order: int, use_pallas: str = "auto"):
-    """Two-level custom_vmap ``Σ|residual|`` op (the line-search θ term).
-
-    Same lane routing as :func:`make_residual_action`, but the |·| sum over
-    the (K, xd) window axes happens INSIDE the batched rule, while the
-    kernel output is still in its native lanes-minor layout. Materializing
-    the full (n_trials, n_eq) residual tensor just to reduce it forced a
-    B-major relayout downstream — profiled at ~105 µs/iteration of pure
-    reshape/copy at B=512 (reshape.1249/copy.887 in the bench trace).
-    Unbatched signature: ``fn(Gd, Gv, u, dt, x, xn) -> scalar``."""
-    from jax.custom_batching import custom_vmap
-
-    @custom_vmap
-    def res_l1_batched(Gd, Gv, u, dt, x, xn):
-        out = _res_batch_impl(order, use_pallas, Gd, Gv, u, dt, x, xn)
-        return jnp.sum(jnp.abs(out), axis=(-2, -1))
-
-    @res_l1_batched.def_vmap
-    def _rule_b(axis_size, in_batched, *args):
-        args = [_bcast(a, bt, axis_size) for a, bt in zip(args, in_batched)]
-        flat = [a.reshape((-1,) + a.shape[2:]) for a in args]
-        out = _res_batch_impl(order, use_pallas, *flat)
-        l1 = jnp.sum(jnp.abs(out), axis=(-2, -1))  # (lanes,) — lane layout
-        return l1.reshape((axis_size, -1)), True
-
-    @custom_vmap
-    def residual_l1(Gd, Gv, u, dt, x, xn):
-        return jnp.sum(jnp.abs(_res_xla(order, Gd, Gv, u, dt, x, xn)))
-
-    @residual_l1.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [_bcast(a, bt, axis_size) for a, bt in zip(args, in_batched)]
-        return res_l1_batched(*args), True
-
-    return residual_l1
-
-
-@functools.lru_cache(maxsize=None)
-def make_window_jac(order: int, free_time: bool, use_pallas: str = "auto"):
-    """Cached custom_vmap window-Jacobian op for one (order, free_time).
-
-    Signature (unbatched): ``fn(Gd, Gv, u, dt, x) -> (K, xd, n_th)`` with
+    Signature: ``fn(Gd, Gv, u, dt, x) -> (K, xd, n_th)`` with
     ``n_th = xd + n_dr (+1 if free_time)`` — columns ordered (x, u, Δt).
-    ``use_pallas``: "auto" | "never" | "interpret" (CPU kernel validation).
     """
-    from jax.custom_batching import custom_vmap
-
-    @custom_vmap
-    def window_jac(Gd, Gv, u, dt, x):
-        return _window_jac_xla(order, free_time, Gd, Gv, u, dt, x)
-
-    @window_jac.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [_bcast(a, bt, axis_size) for a, bt in zip(args, in_batched)]
-        Gd, Gv, u, dt, x = args
-        _, K, xd = x.shape
-        n_dr = Gv.shape[1]
-        on_tpu = jax.default_backend() == "tpu"
-        if use_pallas == "interpret":
-            out = jit_cached(
-                _window_jac_pallas, order, free_time, interpret=True
-            )(*args)
-        elif (
-            use_pallas == "auto"
-            and on_tpu
-            and window_jac_eligible(K, xd, n_dr, x.dtype)
-        ):
-            out = jit_cached(_window_jac_pallas, order, free_time)(*args)
-        else:
-            out = jit_cached(_window_jac_xla_vmapped, order, free_time)(*args)
-        return out, True
-
-    return window_jac
+    return functools.partial(_window_jac_xla, order, free_time)

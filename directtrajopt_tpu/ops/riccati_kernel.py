@@ -1,74 +1,31 @@
-"""Fused Riccati KKT factor+solve — XLA scan and Pallas TPU implementations.
+"""Fused Riccati KKT factor+solve: the backward/forward sweeps over knots.
 
 This is the hot loop of the whole framework: the reference spends its solve
 time inside Ipopt's LBLᵀ factorization (`/root/reference/src/solvers/
 evaluator.jl:389-404`); here the equivalent work is a backward Riccati sweep
-plus multi-RHS solves over small (n_s, n_v ≈ 3–16) stage blocks.
+plus multi-RHS solves over small (n_s, n_v ≈ 3–20) stage blocks.
 
-Two implementations with identical semantics:
+``_factor_solve_xla`` is one fused backward ``lax.scan`` over knots
+(factorization AND all R right-hand-side backward recursions in the same
+scan body) plus one forward scan; ``_resolve_xla`` solves against stored
+factors. Both are written for one instance; a batched solve ``vmap``s them.
+The entry points share one trace per (structure, shapes) across the IPM's
+call sites (``utils/jitcache.py``).
 
-* ``_factor_solve_xla`` / ``_resolve_xla`` — ``lax.scan`` over knots, one
-  fused backward scan (factorization AND all R right-hand-side backward
-  recursions in the same scan body) + one forward scan. Used unbatched (CPU,
-  f64) and as the vmap fallback.
-* ``_factor_solve_pallas`` / ``_resolve_pallas`` — batch-on-lanes Pallas
-  kernels: the scenario batch lives on the VPU lanes, every small-matrix
-  product is an unrolled broadcast multiply–add over ``(r, c, B)`` tiles, and
-  the whole sweep (factor + R backward solves + forward substitution + the
-  initial-state Schur solve) runs inside ONE kernel in VMEM. This removes the
-  per-scan-step loop overhead that dominates the XLA path at small block
-  sizes (~360 sequential micro-steps per IPM iteration → 2 kernel launches).
-
-The public entry points ``make_factor_solve`` / ``make_resolve`` return
-``jax.custom_batching.custom_vmap`` callables: called unbatched they run the
-scan path; under ``vmap`` (the production ``solve_batch`` path) they dispatch
-to the Pallas kernel when eligible (TPU, f32, sizes fit VMEM).
-
-Numerical note: Mosaic lowers f32 division/rsqrt to approximate reciprocals
-(~2⁻¹² relative error — the "1%/stage gap" of round 1). Every reciprocal and
-rsqrt in the kernels is therefore Newton-refined to ≤1 ulp:
-``y ← 0.5·y·(3 − d·y²)`` for rsqrt, ``r ← r·(2 − x·r)`` for reciprocal.
+A hand-written Triton kernel for the sweep (one scenario per GPU thread, the
+knot loop inside the kernel) matched the scan to ~1e-6 on an H100 but took
+minutes to compile per instance, so it was removed; see ROADMAP Design 1.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from directtrajopt_tpu.utils.jitcache import jit_cached
 
-__all__ = ["make_factor_solve", "make_resolve", "pallas_eligible"]
-
-_TINY = 1e-30
-# conservative VMEM budget for one kernel program (bytes). The batch is
-# processed as a grid of 128-lane blocks inside one pallas_call; the budget
-# is one block's buffer set.
-_VMEM_BUDGET = int(13 * 1024 * 1024)
-_LANES = 128
-# Mosaic double-buffers every in/out block when the lane grid has >1 step
-# (pipelining), so the scoped-vmem requirement is ~2x one block's buffer set
-# — past XLA's 16 MiB default scoped limit for the larger stage shapes.
-# Raise the per-kernel cap (v5e/v5p have 128 MiB VMEM); eligibility still
-# gates one block's set at _VMEM_BUDGET, so 2x + temporaries fits easily.
-_VMEM_LIMIT = int(100 * 1024 * 1024)
-
-
-def _tpu_params(interpret):
-    if interpret:
-        return {}
-    return {
-        "compiler_params": pltpu.CompilerParams(vmem_limit_bytes=_VMEM_LIMIT)
-    }
-
-
-# --------------------------------------------------------------------------- #
-# XLA scan implementations (unbatched; vmap-able)
-# --------------------------------------------------------------------------- #
+__all__ = ["make_factor_solve", "make_resolve"]
 
 
 def _factor_solve_xla(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
@@ -77,7 +34,7 @@ def _factor_solve_xla(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
     Shapes: Qss (N,ns,ns), Qsv (N,ns,nv), Qvv (N,nv,nv), A (N,ns,ns),
     B (N,ns,nv) — stage N−1 rows of A/B/b are zero padding. qs (R,N,ns),
     qv (R,N,nv), b (R,N,ns) — b must be pre-masked by the core mask.
-    s0m: static numpy (ns,) 0/1 mask of free initial-state coordinates.
+    s0m: static (ns,) 0/1 mask of free initial-state coordinates.
 
     Returns (P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam) with lam (R, N−1, ns).
     """
@@ -85,6 +42,7 @@ def _factor_solve_xla(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b):
     nv = Qvv.shape[-1]
     R = qs.shape[0]
     dtype = Qss.dtype
+    s0m = np.asarray(s0m, dtype=np.float64)
     eye_v = jnp.eye(nv, dtype=dtype)
     eye_s = jnp.eye(ns, dtype=dtype)
     qsT = jnp.moveaxis(qs, 0, 1)  # (N, R, ns)
@@ -146,6 +104,7 @@ def _resolve_xla(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
     N, ns, _ = P.shape
     R = qs.shape[0]
     dtype = P.dtype
+    s0m = np.asarray(s0m, dtype=np.float64)
     qsT = jnp.moveaxis(qs, 0, 1)
     qvT = jnp.moveaxis(qv, 0, 1)
     bT = jnp.moveaxis(b, 0, 1)
@@ -182,685 +141,19 @@ def _resolve_xla(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
     return jnp.moveaxis(s_all, 0, 1), jnp.moveaxis(v_all, 0, 1), lam
 
 
-# MEASURED AND REJECTED — log-depth associative-scan resolve. With factors
-# fixed, both resolve substitutions are affine recurrences p_k = p_{k+1}@T_k
-# + d_k (T_k = A_k + B_k@Kg_k), so an O(log N)-depth lax.associative_scan
-# reproduces `_resolve_xla` exactly (validated to 8e-16 at N=51). On-chip it
-# LOSES 3×: bench 1033 vs 3050 solves/s (B=512, r4) — each scan level runs
-# batched (4,4) matmuls that XLA pads to (8,128) tiles, so ~2-3× FLOPs at
-# ~3% tile utilization swamps the depth win; the batch-on-lanes Pallas sweep
-# keeps lanes full and its 51 "sequential" fused VPU steps are cheaper than
-# 6 padded levels. Restore from git history (search _resolve_xla_parallel)
-# if stage dims ever grow past ~16 where tile padding stops dominating.
+# A log-depth ``lax.associative_scan`` form of the resolve (both
+# substitutions are affine recurrences once the factors are fixed) matched
+# `_resolve_xla` to 8e-16 at N=51 but ran slower than the sequential sweep
+# at stage sizes ≤ 16; restore it from git history (``_resolve_xla_parallel``)
+# if long horizons make the sweep's depth the bottleneck.
 
-# --------------------------------------------------------------------------- #
-# Pallas kernels (batch-on-lanes)
-# --------------------------------------------------------------------------- #
 
+def make_factor_solve(s0m_key: tuple):
+    """Fused factor+solve for a structure; ``s0m_key`` is the tuple of 0/1
+    ints masking the free initial-state coordinates (static)."""
+    return jit_cached(_factor_solve_xla, s0m_key)
 
-def _fori_i32(n, body, init):
-    """``lax.fori_loop(0, n, body, init)`` with a guaranteed-i32 index.
 
-    Under ``jax_enable_x64`` fori_loop's induction variable is i64, which
-    poisons every in-kernel index computation (pl.ds, sub) — Mosaic either
-    rejects the mixed-width arithmetic or infinitely recurses lowering the
-    i64→i32 convert. An explicit i32 scan carry keeps the traced program
-    identical to the x64-off one.
-    """
-
-    def step(carry, _):
-        i, c = carry
-        return (i + np.int32(1), body(i, c)), None
-
-    (_, out), _ = jax.lax.scan(step, (np.int32(0), init), None, length=n)
-    return out
-
-
-def _rsqrt_exact(d):
-    """Newton-refined rsqrt: exact to ~1 ulp even if lax.rsqrt is approximate."""
-    y = jax.lax.rsqrt(d)
-    return 0.5 * y * (3.0 - d * y * y)
-
-
-def _row(M, j):
-    """(r, c, B) -> (1, c, B) static row slice."""
-    return jax.lax.slice_in_dim(M, j, j + 1, axis=0)
-
-
-def _colv(M, j):
-    """(R, c, B) -> (R, 1, B) static column slice along axis 1."""
-    return jax.lax.slice_in_dim(M, j, j + 1, axis=1)
-
-
-def _chol_unrolled(H, n, Bt, dtype):
-    """Unrolled Cholesky of an n×n batched matrix H (n, n, B).
-
-    Returns (entries L_e[r][c] as (1,1,B) arrays, inv_diag list, ok (1,1,B))."""
-
-    def ent(M, r, c):
-        return jax.lax.slice(M, (r, c, 0), (r + 1, c + 1, Bt))  # (1,1,B)
-
-    L_e = [[None] * n for _ in range(n)]
-    inv_diag = [None] * n
-    ok = jnp.ones((1, 1, Bt), dtype)
-    for r in range(n):
-        d = ent(H, r, r)
-        for t in range(r):
-            d = d - L_e[r][t] * L_e[r][t]
-        ok = ok * (d > 0).astype(dtype)  # not where(.,1.0,0.0): f64 under x64
-        d = jnp.maximum(d, _TINY)
-        y = _rsqrt_exact(d)
-        inv_diag[r] = y
-        L_e[r][r] = d * y  # sqrt(d)
-        for q in range(r + 1, n):
-            v = ent(H, q, r)
-            for t in range(r):
-                v = v - L_e[q][t] * L_e[r][t]
-            L_e[q][r] = v * y
-    return L_e, inv_diag, ok
-
-
-def _tri_solve_rows(L_e, inv_diag, rhs, n, neg=False):
-    """Solve L Lᵀ X = rhs for batched row-stacked rhs (R, n, B); entries of L
-    are (1,1,B). Returns (R, n, B). If neg, returns −X."""
-    ys = []
-    for m in range(n):
-        acc = _colv(rhs, m)  # (R, 1, B)
-        for t in range(m):
-            acc = acc - L_e[m][t] * ys[t]
-        ys.append(acc * inv_diag[m])
-    xs = [None] * n
-    for m in reversed(range(n)):
-        acc = ys[m]
-        for t in range(m + 1, n):
-            acc = acc - L_e[t][m] * xs[t]
-        xs[m] = acc * inv_diag[m]
-    out = jnp.concatenate(xs, axis=1) if n else rhs
-    return -out if neg else out
-
-
-def _tri_solve_mat(L_e, inv_diag, rhs, n, neg=False):
-    """Solve L Lᵀ X = rhs where the solve dimension is axis 0 of rhs
-    (n, c, B); entries of L are (1,1,B). Returns (n, c, B)."""
-    ys = []
-    for m in range(n):
-        acc = _row(rhs, m)  # (1, c, B)
-        for t in range(m):
-            acc = acc - L_e[m][t] * ys[t]
-        ys.append(acc * inv_diag[m])
-    xs = [None] * n
-    for m in reversed(range(n)):
-        acc = ys[m]
-        for t in range(m + 1, n):
-            acc = acc - L_e[t][m] * xs[t]
-        xs[m] = acc * inv_diag[m]
-    out = jnp.concatenate(xs, axis=0) if n else rhs
-    return -out if neg else out
-
-
-def _factor_stage(P, Qss, Qsv, Qvv, A, B, ns, nv, Bt, dtype):
-    """One backward factor stage on (r, c, B) tiles. Returns
-    (P_new, L_e, inv_diag, Lmat, Kg, Mvs, ok)."""
-    PB = jnp.zeros((ns, nv, Bt), dtype)
-    PA = jnp.zeros((ns, ns, Bt), dtype)
-    for j in range(ns):
-        cj = jax.lax.slice_in_dim(P, j, j + 1, axis=1)  # (ns,1,B) col j
-        PB = PB + cj * _row(B, j)
-        PA = PA + cj * _row(A, j)
-    # Hvv = Qvv + Bᵀ PB ; Mvs = Qsvᵀ + Bᵀ PA
-    Hvv = Qvv
-    Mvs = jnp.transpose(Qsv, (1, 0, 2))
-    for j in range(ns):
-        bj_t = jnp.transpose(_row(B, j), (1, 0, 2))  # (nv,1,B)
-        Hvv = Hvv + bj_t * _row(PB, j)
-        Mvs = Mvs + bj_t * _row(PA, j)
-    L_e, inv_diag, ok3 = _chol_unrolled(Hvv, nv, Bt, dtype)
-    Lmat = (
-        jnp.concatenate(
-            [
-                jnp.concatenate(
-                    [L_e[r][c] if c <= r else jnp.zeros((1, 1, Bt), dtype) for c in range(nv)],
-                    axis=1,
-                )
-                for r in range(nv)
-            ],
-            axis=0,
-        )
-        if nv
-        else jnp.zeros((nv, nv, Bt), dtype)
-    )
-    Kg = _tri_solve_mat(L_e, inv_diag, Mvs, nv, neg=True)  # (nv, ns, B)
-    P_new = Qss
-    for j in range(ns):
-        P_new = P_new + jnp.transpose(_row(A, j), (1, 0, 2)) * _row(PA, j)
-    for m in range(nv):
-        P_new = P_new + jnp.transpose(_row(Mvs, m), (1, 0, 2)) * _row(Kg, m)
-    P_new = 0.5 * (P_new + jnp.transpose(P_new, (1, 0, 2)))
-    return P_new, L_e, inv_diag, Lmat, Kg, Mvs, ok3
-
-
-def _fused_kernel(
-    ns, nv, N, R, s0m,
-    qss_ref, qsv_ref, qvv_ref, a_ref, b_ref, qs_ref, qv_ref, rb_ref,
-    p_ref, l_ref, kg_ref, mvs_ref, l0_ref, ok_ref, dzs_ref, dzv_ref, lam_ref,
-):
-    """Fused factor + R-RHS solve for one batch tile.
-
-    Refs: inputs (N, r, c, B)-shaped stage stacks and (N, R, ·, B) RHS stacks;
-    outputs the factor stacks, L0, ok, and per-RHS solutions. ``dzs_ref`` /
-    ``dzv_ref`` double as scratch for p_k / kff_k between the sweeps."""
-    Bt = qss_ref.shape[-1]
-    dtype = qss_ref.dtype
-
-    def rd(ref, k):
-        return jnp.squeeze(ref[pl.ds(k, 1)], axis=0)
-
-    def bwd(i, carry):
-        P, p, ok = carry  # (ns,ns,B), (R,ns,B), (1,1,B)
-        # i32 index arithmetic regardless of the x64 config: an i64 loop
-        # index reaches arith.subi/pl.ds as mixed-width and Mosaic rejects it
-        k = np.int32(N - 1) - i
-        Qss, Qsv, Qvv = rd(qss_ref, k), rd(qsv_ref, k), rd(qvv_ref, k)
-        A, B = rd(a_ref, k), rd(b_ref, k)
-        qs_k, qv_k, b_k = rd(qs_ref, k), rd(qv_ref, k), rd(rb_ref, k)
-
-        P_new, L_e, inv_diag, Lmat, Kg, Mvs, ok3 = _factor_stage(
-            P, Qss, Qsv, Qvv, A, B, ns, nv, Bt, dtype
-        )
-        ok = ok * ok3
-
-        # RHS backward recursion (uses P = P_{k+1} and this stage's factors).
-        # w[r,:] = Σ_j b_k[r,j]·P[j,:] + p  (P symmetric ⇒ row j = column j)
-        w = p
-        for j in range(ns):
-            w = w + _colv(b_k, j) * _row(P, j)
-        mv = qv_k
-        for i2 in range(ns):
-            mv = mv + _colv(w, i2) * _row(B, i2)
-        kff = _tri_solve_rows(L_e, inv_diag, mv, nv, neg=True)  # (R, nv, B)
-        p_new = qs_k
-        for i2 in range(ns):
-            p_new = p_new + _colv(w, i2) * _row(A, i2)
-        for m in range(nv):
-            p_new = p_new + _colv(kff, m) * _row(Mvs, m)
-
-        p_ref[pl.ds(k, 1)] = P_new[None]
-        l_ref[pl.ds(k, 1)] = Lmat[None]
-        kg_ref[pl.ds(k, 1)] = Kg[None]
-        mvs_ref[pl.ds(k, 1)] = Mvs[None]
-        dzv_ref[pl.ds(k, 1)] = kff[None]  # stash kff_k
-        dzs_ref[pl.ds(k, 1)] = p_new[None]  # stash p_k
-        return (P_new, p_new, ok)
-
-    P0 = jnp.zeros((ns, ns, Bt), dtype)
-    p0 = jnp.zeros((R, ns, Bt), dtype)
-    ok0 = jnp.ones((1, 1, Bt), dtype)
-    P0, p0, ok = _fori_i32(N, bwd, (P0, p0, ok0))
-
-    # ---- initial-state masked Cholesky + solve --------------------------- #
-    free0 = [bool(s0m[i]) for i in range(ns)]
-    # P0m = M∘P0 + diag(1−m): build entries statically
-    def p0_ent(r, c):
-        if free0[r] and free0[c]:
-            return jax.lax.slice(P0, (r, c, 0), (r + 1, c + 1, Bt))
-        if r == c:
-            return jnp.ones((1, 1, Bt), dtype)
-        return jnp.zeros((1, 1, Bt), dtype)
-
-    L0_e = [[None] * ns for _ in range(ns)]
-    inv0 = [None] * ns
-    for r in range(ns):
-        d = p0_ent(r, r)
-        for t in range(r):
-            d = d - L0_e[r][t] * L0_e[r][t]
-        ok = ok * (d > 0).astype(dtype)  # not where(.,1.0,0.0): f64 under x64
-        d = jnp.maximum(d, _TINY)
-        y = _rsqrt_exact(d)
-        inv0[r] = y
-        L0_e[r][r] = d * y
-        for q in range(r + 1, ns):
-            v = p0_ent(q, r)
-            for t in range(r):
-                v = v - L0_e[q][t] * L0_e[r][t]
-            L0_e[q][r] = v * y
-    l0_ref[...] = jnp.concatenate(
-        [
-            jnp.concatenate(
-                [L0_e[r][c] if c <= r else jnp.zeros((1, 1, Bt), dtype) for c in range(ns)],
-                axis=1,
-            )
-            for r in range(ns)
-        ],
-        axis=0,
-    )
-    ok_ref[...] = jnp.reshape(ok, (1, Bt))
-
-    # ds0 = −(L0 L0ᵀ)⁻¹ (p0 ∘ s0m), masked
-    rhs0_cols = [
-        _colv(p0, j) if free0[j] else jnp.zeros((R, 1, Bt), dtype) for j in range(ns)
-    ]
-    rhs0 = jnp.concatenate(rhs0_cols, axis=1)
-    ds0_full = _tri_solve_rows(L0_e, inv0, rhs0, ns, neg=True)  # (R, ns, B)
-    ds0 = jnp.concatenate(
-        [
-            _colv(ds0_full, j) if free0[j] else jnp.zeros((R, 1, Bt), dtype)
-            for j in range(ns)
-        ],
-        axis=1,
-    )
-
-    # ---- forward sweep ---------------------------------------------------- #
-    def fwd(k, s):
-        P_k = rd(p_ref, k)
-        p_k = rd(dzs_ref, k)  # stashed p_k
-        kff = rd(dzv_ref, k)  # stashed kff_k
-        Kg = rd(kg_ref, k)
-        A, B = rd(a_ref, k), rd(b_ref, k)
-        b_k = rd(rb_ref, k)
-
-        @pl.when(k >= 1)
-        def _():
-            lam = p_k
-            for j in range(ns):
-                lam = lam + _colv(s, j) * _row(P_k, j)
-            lam_ref[pl.ds(jnp.maximum(k - 1, 0), 1)] = (-lam)[None]
-
-        # v[r,m] = kff[r,m] + Σ_j Kg[m,j] s[r,j] (reduction over axis 1)
-        v_cols = []
-        for m in range(nv):
-            acc = jnp.sum(_row(Kg, m) * s, axis=1, keepdims=True)  # (R,1,B)
-            v_cols.append(acc)
-        v = kff + jnp.concatenate(v_cols, axis=1) if nv else kff
-        s_cols = []
-        for i2 in range(ns):
-            acc = jnp.sum(_row(A, i2) * s, axis=1, keepdims=True)
-            if nv:
-                acc = acc + jnp.sum(_row(B, i2) * v, axis=1, keepdims=True)
-            s_cols.append(acc)
-        s_next = jnp.concatenate(s_cols, axis=1) + b_k
-        dzs_ref[pl.ds(k, 1)] = s[None]  # overwrite stash with solution
-        dzv_ref[pl.ds(k, 1)] = v[None]
-        return s_next
-
-    _fori_i32(N, fwd, ds0)
-
-
-def _resolve_kernel(
-    ns, nv, N, R, s0m,
-    p_in_ref, l_in_ref, kg_in_ref, mvs_in_ref, l0_in_ref,
-    a_ref, b_ref, qs_ref, qv_ref, rb_ref,
-    dzs_ref, dzv_ref, lam_ref, pstash_ref, kstash_ref,
-):
-    """Solve with stored factors for one batch tile (SOC resolve)."""
-    Bt = a_ref.shape[-1]
-    dtype = a_ref.dtype
-
-    def rd(ref, k):
-        return jnp.squeeze(ref[pl.ds(k, 1)], axis=0)
-
-    def ent3(M, r, c):
-        return jax.lax.slice(M, (r, c, 0), (r + 1, c + 1, Bt))
-
-    def recip(x):
-        r = 1.0 / x
-        return r * (2.0 - x * r)
-
-    def bwd(i, p):
-        k = np.int32(N - 1) - i  # i32: see above
-        # P_{k+1}: zeros at the last stage
-        Pn = jnp.where(k < N - 1, rd(p_in_ref, jnp.minimum(k + 1, N - 1)), 0.0)
-        Lmat = rd(l_in_ref, k)
-        Mvs = rd(mvs_in_ref, k)
-        A, B = rd(a_ref, k), rd(b_ref, k)
-        qs_k, qv_k, b_k = rd(qs_ref, k), rd(qv_ref, k), rd(rb_ref, k)
-
-        L_e = [[ent3(Lmat, r, c) for c in range(nv)] for r in range(nv)]
-        inv_diag = [recip(jnp.maximum(L_e[m][m], _TINY)) for m in range(nv)]
-        w = p
-        for j in range(ns):
-            w = w + _colv(b_k, j) * _row(Pn, j)
-        mv = qv_k
-        for i2 in range(ns):
-            mv = mv + _colv(w, i2) * _row(B, i2)
-        kff = _tri_solve_rows(L_e, inv_diag, mv, nv, neg=True)
-        p_new = qs_k
-        for i2 in range(ns):
-            p_new = p_new + _colv(w, i2) * _row(A, i2)
-        for m in range(nv):
-            p_new = p_new + _colv(kff, m) * _row(Mvs, m)
-        pstash_ref[pl.ds(k, 1)] = p_new[None]
-        kstash_ref[pl.ds(k, 1)] = kff[None]
-        return p_new
-
-    p0 = _fori_i32(N, bwd, jnp.zeros((R, ns, Bt), dtype))
-
-    free0 = [bool(s0m[i]) for i in range(ns)]
-    L0mat = l0_in_ref[...]
-    L0_e = [[ent3(L0mat, r, c) for c in range(ns)] for r in range(ns)]
-    inv0 = [recip(jnp.maximum(L0_e[r][r], _TINY)) for r in range(ns)]
-    rhs0 = jnp.concatenate(
-        [_colv(p0, j) if free0[j] else jnp.zeros((R, 1, Bt), dtype) for j in range(ns)],
-        axis=1,
-    )
-    ds0_full = _tri_solve_rows(L0_e, inv0, rhs0, ns, neg=True)
-    ds0 = jnp.concatenate(
-        [
-            _colv(ds0_full, j) if free0[j] else jnp.zeros((R, 1, Bt), dtype)
-            for j in range(ns)
-        ],
-        axis=1,
-    )
-
-    def fwd(k, s):
-        P_k = rd(p_in_ref, k)
-        p_k = rd(pstash_ref, k)
-        kff = rd(kstash_ref, k)
-        Kg = rd(kg_in_ref, k)
-        A, B = rd(a_ref, k), rd(b_ref, k)
-        b_k = rd(rb_ref, k)
-
-        @pl.when(k >= 1)
-        def _():
-            lam = p_k
-            for j in range(ns):
-                lam = lam + _colv(s, j) * _row(P_k, j)
-            lam_ref[pl.ds(jnp.maximum(k - 1, 0), 1)] = (-lam)[None]
-
-        v_cols = []
-        for m in range(nv):
-            v_cols.append(jnp.sum(_row(Kg, m) * s, axis=1, keepdims=True))
-        v = kff + jnp.concatenate(v_cols, axis=1) if nv else kff
-        s_cols = []
-        for i2 in range(ns):
-            acc = jnp.sum(_row(A, i2) * s, axis=1, keepdims=True)
-            if nv:
-                acc = acc + jnp.sum(_row(B, i2) * v, axis=1, keepdims=True)
-            s_cols.append(acc)
-        s_next = jnp.concatenate(s_cols, axis=1) + b_k
-        dzs_ref[pl.ds(k, 1)] = s[None]
-        dzv_ref[pl.ds(k, 1)] = v[None]
-        return s_next
-
-    _fori_i32(N, fwd, ds0)
-
-
-# --------------------------------------------------------------------------- #
-# Pallas wrappers: layout, padding, grid
-# --------------------------------------------------------------------------- #
-
-
-def _vmem_bytes(N, ns, nv, R, Bt, resolve=False):
-    per_lane = N * (
-        2 * ns * ns + ns * nv + nv * nv + nv * nv + 2 * nv * ns  # stage + factors
-        + R * (3 * ns + 2 * nv)  # rhs + solutions
-    ) + ns * ns
-    if resolve:
-        per_lane += N * R * (ns + nv)  # stashes
-    return 4 * Bt * per_lane
-
-
-def _pick_block(N, ns, nv, R, resolve=False):
-    # Mosaic requires the lane (last) block dim to be a multiple of 128
-    if _vmem_bytes(N, ns, nv, R, _LANES, resolve) <= _VMEM_BUDGET:
-        return _LANES
-    return 0
-
-
-def pallas_eligible(N, ns, nv, R, dtype) -> bool:
-    """Static check: can the fused Pallas kernel handle this structure?"""
-    if dtype != jnp.float32:
-        return False
-    if ns < 1 or ns > 24 or nv < 1 or nv > 24 or R > 40:
-        return False
-    return _pick_block(N, ns, nv, R, resolve=True) > 0
-
-
-def _pad_batch(x, pad):
-    if pad:
-        x = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
-    return x
-
-
-def _to_lanes(x):
-    """(Bp, N, r, c) -> (N, r, c, Bp) / (Bp, R, N, d) -> (N, R, d, Bp)."""
-    if x.ndim == 4:
-        return jnp.transpose(x, (1, 2, 3, 0))
-    raise ValueError(x.shape)
-
-
-def _from_lanes(x, Bn):
-    return jnp.transpose(x, (x.ndim - 1,) + tuple(range(x.ndim - 1)))[:Bn]
-
-
-def _lane_spec(shape, chunk):
-    """BlockSpec slicing only the minor (lane) axis into ``chunk`` blocks."""
-    nd = len(shape)
-    # np.int32 zeros, not Python ints: under jax_enable_x64 literal ints in
-    # the index map trace as i64 and the Mosaic module fails to legalize
-    # ("func.return") — see ops/expv_kernel._lane_spec
-    return pl.BlockSpec(
-        shape[:-1] + (chunk,),
-        lambda c, _nd=nd: (np.int32(0),) * (_nd - 1) + (c,),
-        memory_space=pltpu.VMEM,
-    )
-
-
-def _factor_solve_pallas(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b, *, interpret=False):
-    """Batched fused factor+solve. Inputs (Bn, N, ·, ·) / (Bn, R, N, ·).
-
-    The lane axis is gridded into 128-wide blocks inside ONE pallas_call —
-    the earlier lax.map-over-chunks form paid ~0.3 ms/iteration of
-    dynamic_update_slice result-stacking at B=512 (profiled)."""
-    Bn, N, ns, _ = Qss.shape
-    nv = Qvv.shape[-1]
-    R = qs.shape[1]
-    dtype = Qss.dtype
-    chunk = _LANES if not interpret else min(_LANES, max(8, Bn))
-    # padded lanes must stay PD: identity Qvv on the pad, zeros elsewhere
-    pad = (-Bn) % chunk
-    if pad:
-        eyepad = jnp.broadcast_to(
-            jnp.eye(nv, dtype=dtype)[None, None], (pad, N, nv, nv)
-        )
-        Qvv = jnp.concatenate([Qvv, eyepad], axis=0)
-    Qss, Qsv, A, B, qs, qv, b = (
-        _pad_batch(x, pad) for x in (Qss, Qsv, A, B, qs, qv, b)
-    )
-    Bp = Bn + pad
-
-    ins = [
-        _to_lanes(Qss), _to_lanes(Qsv), _to_lanes(Qvv), _to_lanes(A), _to_lanes(B),
-        jnp.transpose(qs, (2, 1, 3, 0)),  # (N, R, ns, Bp)
-        jnp.transpose(qv, (2, 1, 3, 0)),
-        jnp.transpose(b, (2, 1, 3, 0)),
-    ]
-    kernel = functools.partial(_fused_kernel, ns, nv, N, R, tuple(int(v) for v in s0m))
-    Nm1 = max(N - 1, 1)
-    out_shapes = [
-        (N, ns, ns, Bp),
-        (N, nv, nv, Bp),
-        (N, nv, ns, Bp),
-        (N, nv, ns, Bp),
-        (ns, ns, Bp),
-        (1, Bp),
-        (N, R, ns, Bp),
-        (N, R, nv, Bp),
-        (Nm1, R, ns, Bp),
-    ]
-    outs = pl.pallas_call(
-        kernel,
-        grid=(Bp // chunk,),
-        in_specs=[_lane_spec(x.shape, chunk) for x in ins],
-        out_specs=[_lane_spec(s, chunk) for s in out_shapes],
-        out_shape=[jax.ShapeDtypeStruct(s, dtype) for s in out_shapes],
-        **_tpu_params(interpret),
-        interpret=interpret,
-    )(*ins)
-    P_t, L_t, Kg_t, Mvs_t, L0_t, ok_t, dzs_t, dzv_t, lam_t = outs
-    P = _from_lanes(P_t, Bn)
-    Lv = _from_lanes(L_t, Bn)
-    Kg = _from_lanes(Kg_t, Bn)
-    Mvs = _from_lanes(Mvs_t, Bn)
-    L0 = _from_lanes(L0_t, Bn)
-    ok = ok_t[0, :Bn] > 0.5
-    dzs = jnp.transpose(dzs_t, (3, 1, 0, 2))[:Bn]  # (Bn, R, N, ns)
-    dzv = jnp.transpose(dzv_t, (3, 1, 0, 2))[:Bn]
-    lam = jnp.transpose(lam_t, (3, 1, 0, 2))[:Bn]
-    if N == 1:
-        lam = lam[:, :, :0]
-    return P, Lv, Kg, Mvs, L0, ok, dzs, dzv, lam
-
-
-def _resolve_pallas(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b, *, interpret=False):
-    """Resolve against stored factors, lane axis gridded (see
-    :func:`_factor_solve_pallas`)."""
-    Bn, N, ns, _ = P.shape
-    nv = Lv.shape[-1]
-    R = qs.shape[1]
-    dtype = P.dtype
-    chunk = _LANES if not interpret else min(_LANES, max(8, Bn))
-    pad = (-Bn) % chunk
-    if pad:
-        eyepad = jnp.broadcast_to(jnp.eye(nv, dtype=dtype)[None, None], (pad, N, nv, nv))
-        Lv = jnp.concatenate([Lv, eyepad], axis=0)
-        eye0 = jnp.broadcast_to(jnp.eye(ns, dtype=dtype)[None], (pad, ns, ns))
-        L0 = jnp.concatenate([L0, eye0], axis=0)
-    P, Kg, Mvs, A, B, qs, qv, b = (
-        _pad_batch(x, pad) for x in (P, Kg, Mvs, A, B, qs, qv, b)
-    )
-    Bp = Bn + pad
-    ins = [
-        _to_lanes(P), _to_lanes(Lv), _to_lanes(Kg), _to_lanes(Mvs),
-        jnp.transpose(L0, (1, 2, 0)),
-        _to_lanes(A), _to_lanes(B),
-        jnp.transpose(qs, (2, 1, 3, 0)),
-        jnp.transpose(qv, (2, 1, 3, 0)),
-        jnp.transpose(b, (2, 1, 3, 0)),
-    ]
-    kernel = functools.partial(_resolve_kernel, ns, nv, N, R, tuple(int(v) for v in s0m))
-    Nm1 = max(N - 1, 1)
-    out_shapes = [(N, R, ns, Bp), (N, R, nv, Bp), (Nm1, R, ns, Bp)]
-    outs = pl.pallas_call(
-        kernel,
-        grid=(Bp // chunk,),
-        in_specs=[_lane_spec(x.shape, chunk) for x in ins],
-        out_specs=[_lane_spec(s, chunk) for s in out_shapes],
-        out_shape=[jax.ShapeDtypeStruct(s, dtype) for s in out_shapes],
-        scratch_shapes=[
-            pltpu.VMEM((N, R, ns, chunk), dtype),
-            pltpu.VMEM((N, R, nv, chunk), dtype),
-        ],
-        **_tpu_params(interpret),
-        interpret=interpret,
-    )(*ins)
-    dzs_t, dzv_t, lam_t = outs
-    dzs = jnp.transpose(dzs_t, (3, 1, 0, 2))[:Bn]
-    dzv = jnp.transpose(dzv_t, (3, 1, 0, 2))[:Bn]
-    lam = jnp.transpose(lam_t, (3, 1, 0, 2))[:Bn]
-    if N == 1:
-        lam = lam[:, :, :0]
-    return dzs, dzv, lam
-
-
-# --------------------------------------------------------------------------- #
-# custom_vmap entry points
-# --------------------------------------------------------------------------- #
-
-
-def _bcast(x, batched, axis_size):
-    return x if batched else jnp.broadcast_to(x, (axis_size,) + x.shape)
-
-
-def _factor_solve_pallas_k(s0m_key, *args, interpret=False):
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-    return _factor_solve_pallas(s0m, *args, interpret=interpret)
-
-
-def _factor_solve_xla_vm(s0m_key, *args):
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-    return jax.vmap(functools.partial(_factor_solve_xla, s0m))(*args)
-
-
-def _resolve_pallas_k(s0m_key, *args, interpret=False):
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-    return _resolve_pallas(s0m, *args, interpret=interpret)
-
-
-def _resolve_xla_vm(s0m_key, *args):
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-    return jax.vmap(functools.partial(_resolve_xla, s0m))(*args)
-
-
-@functools.lru_cache(maxsize=None)
-def make_factor_solve(s0m_key: tuple, use_pallas: str = "auto"):
-    """Build the (cached) custom_vmap'd fused factor+solve for a structure.
-
-    ``s0m_key``: tuple of 0/1 ints — the free-initial-state mask (static).
-    ``use_pallas``: "auto" (TPU+f32+fits → Pallas), "never", "interpret"
-    (Pallas in interpreter mode — for CPU validation tests)."""
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-
-    from jax.custom_batching import custom_vmap
-
-    @custom_vmap
-    def factor_solve(Qss, Qsv, Qvv, A, B, qs, qv, b):
-        return _factor_solve_xla(s0m, Qss, Qsv, Qvv, A, B, qs, qv, b)
-
-    @factor_solve.def_vmap
-    def _rule(axis_size, in_batched, Qss, Qsv, Qvv, A, B, qs, qv, b):
-        args = [
-            _bcast(x, bt, axis_size)
-            for x, bt in zip((Qss, Qsv, Qvv, A, B, qs, qv, b), in_batched)
-        ]
-        N, ns = args[0].shape[1], args[0].shape[2]
-        nv = args[2].shape[-1]
-        R = args[5].shape[1]
-        on_tpu = jax.default_backend() == "tpu"
-        if use_pallas == "interpret":
-            out = jit_cached(_factor_solve_pallas_k, s0m_key, interpret=True)(
-                *args
-            )
-        elif (
-            use_pallas == "auto"
-            and on_tpu
-            and pallas_eligible(N, ns, nv, R, args[0].dtype)
-        ):
-            out = jit_cached(_factor_solve_pallas_k, s0m_key)(*args)
-        else:
-            out = jit_cached(_factor_solve_xla_vm, s0m_key)(*args)
-        return out, tuple(True for _ in out)
-
-    return factor_solve
-
-
-@functools.lru_cache(maxsize=None)
-def make_resolve(s0m_key: tuple, use_pallas: str = "auto"):
-    """custom_vmap'd resolve-with-stored-factors (see make_factor_solve)."""
-    s0m = np.asarray(s0m_key, dtype=np.float64)
-
-    from jax.custom_batching import custom_vmap
-
-    @custom_vmap
-    def resolve(P, Lv, Kg, Mvs, L0, A, B, qs, qv, b):
-        return _resolve_xla(s0m, P, Lv, Kg, Mvs, L0, A, B, qs, qv, b)
-
-    @resolve.def_vmap
-    def _rule(axis_size, in_batched, *args):
-        args = [_bcast(x, bt, axis_size) for x, bt in zip(args, in_batched)]
-        N, ns = args[0].shape[1], args[0].shape[2]
-        nv = args[1].shape[-1]
-        R = args[7].shape[1]
-        on_tpu = jax.default_backend() == "tpu"
-        if use_pallas == "interpret":
-            out = jit_cached(_resolve_pallas_k, s0m_key, interpret=True)(*args)
-        elif (
-            use_pallas == "auto"
-            and on_tpu
-            and pallas_eligible(N, ns, nv, R, args[0].dtype)
-        ):
-            out = jit_cached(_resolve_pallas_k, s0m_key)(*args)
-        else:
-            out = jit_cached(_resolve_xla_vm, s0m_key)(*args)
-        return out, tuple(True for _ in out)
-
-    return resolve
+def make_resolve(s0m_key: tuple):
+    """Resolve-with-stored-factors for a structure (see make_factor_solve)."""
+    return jit_cached(_resolve_xla, s0m_key)

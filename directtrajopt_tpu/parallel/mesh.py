@@ -1,14 +1,13 @@
 """Multi-device scenario-batch sharding.
 
 The reference's entire parallelism story is shared-memory threads inside one
-process (`/root/reference/src/solvers/evaluator.jl:332-359`). The TPU-native
+process (upstream `src/solvers/evaluator.jl:332-359`). Here the
 scaling axis is the scenario batch: a stacked problem pytree shards over a
-``jax.sharding.Mesh`` with the batch axis laid out over devices, and the
+1-D ``jax.sharding.Mesh`` with the batch axis laid out over devices, and the
 whole vmapped IPM runs SPMD — XLA inserts the (minimal) collectives; each
 scenario's solve is independent so communication rides only on data layout.
-Works identically on one host (ICI) and multi-host slices (ICI + DCN),
-including the CPU-emulated meshes used in tests and the driver's
-``dryrun_multichip``.
+Works identically on the GPUs of one host, on several hosts, and on the
+CPU-emulated meshes used in tests.
 """
 
 from __future__ import annotations
@@ -43,14 +42,12 @@ def init_distributed(
     """Initialize multi-host JAX (one process per host) and return
     ``(process_index, process_count)``.
 
-    Thin entry over :func:`jax.distributed.initialize`. On TPU pods the
-    arguments are auto-detected from the environment, so a bare
-    ``init_distributed()`` at program start is sufficient; on other
-    platforms pass the coordinator address and the process layout. After
+    Thin entry over :func:`jax.distributed.initialize`: pass the
+    coordinator address and the process layout. After
     this, :func:`jax.devices` shows the global device set and the sharded
     solve path (:func:`solve_batch_sharded`) works across hosts unchanged —
     the batch axis spans the global mesh, each host feeds its addressable
-    shard, and DCN only ever carries the (tiny) result gathers that the
+    shard, and the network only ever carries the (tiny) result gathers that the
     caller requests.
     """
     jax.distributed.initialize(
@@ -199,7 +196,7 @@ def weak_scaling(
 
     This is the green-field analog of the reference's (absent) multi-process
     scaling harness (SURVEY §2.8): on an emulated CPU mesh the numbers
-    validate the mechanism, on a real slice they measure ICI/DCN overhead —
+    validate the mechanism, on real devices they measure the sharding overhead —
     which for the scenario-batch axis is data layout only, so efficiency
     should sit near 1.0.
     """

@@ -3,7 +3,7 @@
 The reference evaluates derivatives per component with ForwardDiff and
 scatters them through precomputed sparse index maps
 (`/root/reference/src/solvers/evaluator.jl:368-404,491-647`). Here the same
-block structure is exploited the TPU way: per-window / per-knot derivative
+block structure is exploited the batched way: per-window / per-knot derivative
 blocks come from *vmapped* ``jacfwd`` / ``hessian`` (one batched kernel per
 component instead of N Julia loop iterations), and are scattered into dense
 matrices with precomputed static index grids. The block layout is

@@ -1,4 +1,4 @@
-"""Solver callbacks — the TPU-native analog of the reference's ``Callbacks``
+"""Solver callbacks — the on-device analog of the reference's ``Callbacks``
 module (`/root/reference/src/solvers/ipopt_solver/callbacks.jl`) and the
 solver-agnostic ``AbstractIntermediateCallback`` contract
 (`src/solvers/_solvers.jl:21-59`).

@@ -1,6 +1,6 @@
 """Problem canonicalization: compile a DirectTrajOptProblem into NLP callables.
 
-This is the TPU-native replacement for the reference's ``Evaluator``
+This is the JAX replacement for the reference's ``Evaluator``
 (`/root/reference/src/solvers/evaluator.jl:99-289`): where the reference
 concatenates sparsity patterns and builds linear index maps for MOI callbacks,
 here the problem lowers (at trace time, from static metadata only) into
@@ -150,13 +150,8 @@ class CanonicalNLP:
         return jnp.concatenate(parts) if parts else jnp.zeros((0,), dtype=Z.dtype)
 
     def c_eq_l1(self, Z: jax.Array) -> jax.Array:
-        """``Σ|c_eq(Z)|`` without materializing the residual vector.
-
-        The dynamics part reduces in lane space when the integrator provides
-        a fused ``Σ|residual|`` op (`integrators/base.stack_residuals_l1`) —
-        the line-search θ consumer; materializing per-trial residual vectors
-        forced the batched trial tensor into B-major layout (~105 µs/iter of
-        relayout at B=512, see `ops/expv_kernel.make_residual_l1`)."""
+        """``Σ|c_eq(Z)|`` without concatenating the residual vector — the
+        line-search θ consumer reduces each part separately."""
         from ..integrators.base import stack_residuals_l1
 
         zmat = Z[: self.layout.N * self.layout.dim].reshape(
@@ -184,9 +179,8 @@ class CanonicalNLP:
     def apply_pins(self, Z: jax.Array) -> jax.Array:
         """Overwrite pinned coordinates with their fixed values.
 
-        Mask multiply-add, NOT ``Z.at[idx].set``: index-array scatters lower
-        to serialized scatter ops on TPU, and this runs ~14×/IPM-iteration
-        (every line-search trial). The dense pin vector is built once at
+        Mask multiply-add, NOT ``Z.at[idx].set``: an index-array scatter per
+        call, and this runs ~14×/IPM-iteration (every line-search trial). The dense pin vector is built once at
         make_nlp time; here it's two fusable elementwise ops."""
         if len(self.fix_idx) == 0:
             return Z

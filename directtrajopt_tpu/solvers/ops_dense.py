@@ -17,7 +17,7 @@ correct-inertia certificate for the regularized KKT matrix, and M solves the
 system (with iterative refinement recovering the 1/δc conditioning loss).
 It is the general/fallback path — exact for every problem class, best in f64
 on CPU. The block-structured Riccati backend (`ops_riccati.py`) is the
-TPU/f32 performance path.
+batched f32 performance path.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def _reg_retry(factor, delta_last, opt, dtype):
 
     # (A "carry 3δ so the next probe lands on the δ that just succeeded"
     # variant was measured and REVERTED: it cut batched retry sweeps
-    # 2.15 → 1.8 on the TPU bench, but systematically over-regularizes
+    # 2.15 → 1.8 on the batched bench, but systematically over-regularizes
     # single-lane exact solves — the N=21 free-time golden went 35 → 78
     # iterations. The batched thrash is solved without it by
     # delta_w_decay=1.0 + a constant delta_w_min floor, bench.py.)

@@ -1,4 +1,4 @@
-"""Block-structured Riccati NLP operator backend — the TPU performance path.
+"""Block-structured Riccati NLP operator backend — the batched performance path.
 
 The reference hands a general sparse NLP to Ipopt's LBLᵀ factorization. Every
 problem the reference actually builds, though, is an *explicit optimal-control
@@ -9,13 +9,13 @@ This backend exploits that:
 
 * knot variables split into **states** (integrator targets) and **inputs**;
   the condensed KKT system is a time-varying LQR solved by a backward Riccati
-  sweep (``lax.scan`` over knots) — small dense blocks that batch over
-  scenarios on the MXU;
+  sweep (``lax.scan`` over knots, ``ops/riccati_kernel.py``) — small dense
+  blocks that batch over scenarios;
 * the per-stage Cholesky of the reduced input Hessian **is** the inertia
   certificate (what Ipopt reads off its LBLᵀ inertia), so nonconvexity is
   handled by the same δ_w retry loop as the dense path — with *no* 1/δc
-  augmented-penalty term, which is what makes the factorization exact in f32
-  on TPU;
+  augmented-penalty term, which is what makes the factorization exact in
+  f32;
 * **chain promotion** (FATROP-style constraint-to-go): banded equality
   chains — TimeConsistency ``t_{k+1}=t_k+Δt_k``, (Δt-)all-equal, any static
   row ``β·z_{k+1}[c] + α·z_k = b`` covering every step — are absorbed into
@@ -64,9 +64,8 @@ from .ops_dense import _reg_retry
 __all__ = ["OCPStructure", "analyze", "RiccatiOps"]
 
 # border Schur systems are typically tiny (m_c ≤ ~8 after chain promotion);
-# LAPACK-style cholesky/triangular-solve custom calls on such shapes cost
-# ~0.3 ms/iteration at B=512 on TPU (profiled) — unroll them into scalar
-# ops instead, which vmap into full-lane elementwise work
+# unroll their cholesky/triangular solves into scalar ops, which vmap into
+# full-lane elementwise work instead of per-lane library calls
 _UNROLL_CHOL = 8
 
 
@@ -131,9 +130,9 @@ def _stage_min_shift(Q, n_iter: int = 12, margin_rel: float = 1e-5):
 
     λ_min is ESTIMATED, not certified: shifted power iteration on
     ``cI − Q`` (c = Gershgorin row bound ⇒ the iterated operator is PSD,
-    its λ_max is ``c − λ_min(Q)``), `n_iter` tiny batched matvecs — MXU
-    shapes, no eigendecomposition (batched eigh is QR-iteration-slow on
-    TPU). Underestimates only shrink the shift; the Riccati sweep's
+    its λ_max is ``c − λ_min(Q)``), `n_iter` tiny batched matvecs, no
+    eigendecomposition (batched eigh of tiny blocks is an iterative
+    library call per block). Underestimates only shrink the shift; the Riccati sweep's
     Cholesky inertia certificate and the δ_w ladder remain the backstop.
 
     Returns the per-stage shift (N,) on the leading Q axes.
@@ -181,7 +180,7 @@ def _stage_project(Q, mode: str, eps_rel: float = 1e-6):
       stays an experimental mode documented for completeness.
 
     ε = eps_rel · max_k λ_max(Q_k) keeps the modified block invertible on a
-    common scale. Batched eigh on (N, d, d) — QR-iteration-slow on TPU, so
+    common scale. Batched eigh on (N, d, d) is slow, so
     this is the opt-in exact-mode quality knob, not the GN throughput path.
     The δ_w inertia ladder remains the certified backstop downstream.
     """
@@ -484,13 +483,12 @@ def analyze(nlp: CanonicalNLP) -> OCPStructure | None:
 
 class _RiccatiCtx:
     def __init__(self, nlp: CanonicalNLP, S: OCPStructure, Z, lam, nu,
-                 pallas_mode: str = "auto", cache=None,
+                 cache=None,
                  gauss_newton: bool = False, stagewise: bool = False,
                  skip_hessian: bool = False):
         self.nlp = nlp
         self.S = S
         self.Z = Z
-        self.pallas_mode = pallas_mode
         layout = nlp.layout
         N, d = S.N, S.d
         dtype = Z.dtype
@@ -801,7 +799,7 @@ class _RiccatiCtx:
         out = out.at[: N - 1].add(jnp.einsum("krd,kr->kd", self.Jr, vd))
         # one-hot matmul, not .at[1:, s_idx]: the index-array column write
         # decomposes into one (B, N, d) dynamic-update-slice PER COLUMN under
-        # vmap (profiled 8 DUS ≈ 64 µs/iter at B=512); vd @ E_s is a tiny
+        # vmap; vd @ E_s is a tiny
         # fusable matmul and the row shift is one static-offset update
         out = out.at[1:].add(vd @ self._Es)
         full = jnp.concatenate([out.reshape(-1), out_g])
@@ -1160,8 +1158,8 @@ class _RiccatiCtx:
         from ..ops.riccati_kernel import make_factor_solve, make_resolve
 
         s0_key = tuple(int(v) for v in S.s0_mask)
-        FS = make_factor_solve(s0_key, self.pallas_mode)
-        RS = make_resolve(s0_key, self.pallas_mode)
+        FS = make_factor_solve(s0_key)
+        RS = make_resolve(s0_key)
 
         def _scatter_dz(dzs, dzv):
             return (
@@ -1501,21 +1499,14 @@ class _RiccatiCtx:
 
 
 class RiccatiOps:
-    """Operator backend using the block-structured Riccati KKT solve.
+    """Operator backend using the block-structured Riccati KKT solve."""
 
-    ``pallas_mode``: "auto" (fused Pallas kernel on TPU when eligible,
-    fused XLA scans otherwise), "never" (always XLA scans), or "interpret"
-    (Pallas interpreter mode — for validation on CPU)."""
-
-    def __init__(self, nlp: CanonicalNLP, pallas_mode: str = "auto"):
+    def __init__(self, nlp: CanonicalNLP):
         struct = analyze(nlp)
         if struct is None:
             raise ValueError("problem is not Riccati-eligible")
         self.nlp = nlp
         self.struct = struct
-        import os
-
-        self.pallas_mode = os.environ.get("DTX_PALLAS", pallas_mode)
 
     def prepare(self, Z, lam, nu, cache=None, gauss_newton=False,
                 stagewise=False, skip_hessian=False) -> _RiccatiCtx:
@@ -1525,6 +1516,6 @@ class RiccatiOps:
         # Riccati analog of MadNLP's CompactLBFGS
         # (`/root/reference/ext/MadNLPSolverExt/utils.jl:11-110`)
         return _RiccatiCtx(
-            self.nlp, self.struct, Z, lam, nu, self.pallas_mode, cache,
+            self.nlp, self.struct, Z, lam, nu, cache,
             gauss_newton, stagewise, skip_hessian,
         )

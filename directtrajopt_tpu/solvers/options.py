@@ -1,6 +1,6 @@
 """Solver options.
 
-The TPU-native analog of ``IpoptOptions``
+The JAX analog of ``IpoptOptions``
 (`/root/reference/src/solvers/ipopt_solver/options.jl:33-91`): a pytree of
 numeric knobs (leaves, so a compiled solve can take different tolerances
 without retracing) plus static structural switches. Field names follow Ipopt
@@ -124,7 +124,7 @@ class IPMOptions:
     # "inertia": classic global δ_w ladder only (Ipopt §3.1 behavior).
     # "stagewise": additionally shift each knot's Hessian block past its own
     # estimated λ_min on every factorization (shifted power iteration —
-    # MXU-friendly batched matvecs, no eigh), so one knot's saddle or gauge
+    # batched matvecs, no eigh), so one knot's saddle or gauge
     # valley no longer requires damping every stage's Newton step; the δ_w
     # ladder stays as the certified backstop. Riccati backend only (the
     # dense path has no stage blocks — silently ignored there).
@@ -147,10 +147,8 @@ class IPMOptions:
     # only near-zero eigenvalues) — measured NOT to retain project's win,
     # see ops_riccati._stage_project.
     # "auto" (default, r5): resolved at solve dispatch, currently always to
-    # "inertia". The r4 open question — is project's iteration win worth
-    # its per-iteration cost as a default? — was answered by measurement
-    # this round: on-chip project costs 41.4 ms/lockstep-iter vs inertia's
-    # 5.96 (7×, per-stage eigh has no MXU path), wins ONLY on free-time
+    # "inertia". Is project's iteration win worth its per-iteration cost
+    # (a per-stage eigh) as a default? Measured: it wins ONLY on free-time
     # regulator families (med 21 vs 89 iterations with 30% inertia
     # non-convergence), and as a default regresses everything adjacent:
     # goal/infidelity objectives grind (25 iters → stuck at 3e-3),
@@ -163,7 +161,7 @@ class IPMOptions:
     # When the solve dtype is f32, evaluate the cancellation-limited
     # quantities — c_eq/c_in, ∇f, the dual residual ∇f+Jᵀλ+Jᵀν−zL+zU, the
     # condensed KKT right-hand side, and the full-step line-search trial —
-    # in f64 (XLA-emulated on TPU) and cast the *small results* back to f32.
+    # in f64 and cast the *small results* back to f32.
     # The KKT solve runs in incremental-multiplier form (RHS shifted by the
     # f64 Jᵀλ so it is the small barrier dual residual, which f32 represents
     # to full relative precision) — textbook iterative refinement with an f32
@@ -216,7 +214,7 @@ class IPMOptions:
     # `n_rest_trials` grid slots are re-purposed as trials of a pure
     # feasibility direction (min ½dzᵀ(W+Σ)dz s.t. J dz = −c, reusing the
     # iteration's KKT factorization) accepted on θ-decrease alone — the
-    # TPU-shaped analog of Ipopt's restoration phase (which the reference
+    # lockstep-batch analog of Ipopt's restoration phase (which the reference
     # inherits via MOI, `src/solvers/ipopt_solver/callbacks.jl:194-200`).
     rest_theta_factor: float = 0.05  # θ sufficient-decrease slope at full step
     rest_stall_kappa: float = 0.95  # θ ratio counting a restoration step as stalled

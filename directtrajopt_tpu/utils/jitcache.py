@@ -1,18 +1,14 @@
-"""Shared-trace cache for kernel entry points.
+"""Shared-trace cache for the Riccati sweep entry points.
 
-The Pallas kernel bodies (``ops/expv_kernel.py``, ``ops/riccati_kernel.py``)
-are Python-unrolled 2-D multiply-add chains: tracing one costs ~0.5-1.3 s of
-pure Python. The shared-phase IPM program hits each entry from 4-10 call
-sites (residual eval, window AD, KKT factor, SOC/restoration resolves, one
-per traced phase body), so the cold trace paid that cost repeatedly —
-profiled at ~11 s of the 19 s bench trace (cProfile over
-``_compact_runner.trace(...).lower()``).
+The IPM program hits the factor/resolve sweeps (``ops/riccati_kernel.py``)
+from several call sites (KKT factor, SOC/restoration resolves, one per
+traced phase body); each would otherwise re-trace the same scan.
 
 ``jit_cached(fn, *static)`` returns ``jax.jit(partial(fn, *static))`` from a
 process-level cache: every same-(statics, shapes, dtypes) call site then
 shares ONE traced jaxpr (pjit's own C++ cache does the per-shape keying),
 and the outer trace embeds a cheap closed call instead of re-running the
-kernel-body Python. XLA inlines the nested pjit, so the compiled program is
+sweep's Python. XLA inlines the nested pjit, so the compiled program is
 unchanged — only trace time drops.
 """
 

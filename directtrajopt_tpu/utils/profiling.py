@@ -49,7 +49,7 @@ def time_structure_build(problem, backend: str = "auto") -> dict:
     Returns seconds for: problem lowering (``make_nlp``), Riccati
     eligibility + static structure (``analyze``), and operator construction.
     These run once per (problem structure, dtype) at trace time; they are
-    the TPU-design analog of the reference's sparsity-structure compilation
+    the on-device analog of the reference's sparsity-structure compilation
     (`src/solvers/evaluator.jl:99-289`).
     """
     from ..solvers.canonical import make_nlp

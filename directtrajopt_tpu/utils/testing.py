@@ -1,6 +1,6 @@
 """Finite-difference derivative validators.
 
-TPU-native analog of the reference's core quality gate: ``test_integrator``
+JAX analog of the reference's core quality gate: ``test_integrator``
 (`/root/reference/src/integrators/_integrators.jl:97-242`), ``test_objective``
 (`src/objectives/_objectives.jl:261-336`) and ``test_constraint``
 (`src/constraints/_constraints.jl:150-238`) — every component's AD derivatives

@@ -4,8 +4,7 @@ QuadraticRegularizer, fixed Δt, x_1 pinned, x_N goal (feasible via rollout)."""
 import numpy as np
 import jax
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 tolerances
 import jax.numpy as jnp
 
 import os, sys

@@ -4,8 +4,7 @@ control bounds, and exact-L1 slack constraints on the control increments."""
 import numpy as np
 import jax
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 tolerances
 import jax.numpy as jnp
 
 import os, sys

@@ -6,8 +6,7 @@ the problem well-posed from a cold start."""
 import numpy as np
 import jax
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 tolerances
 import jax.numpy as jnp
 
 import os, sys

@@ -5,8 +5,7 @@ re-solve loop tracking a perturbed state."""
 import numpy as np
 import jax
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 tolerances
 import jax.numpy as jnp
 
 import os, sys

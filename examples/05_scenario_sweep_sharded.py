@@ -1,6 +1,6 @@
-"""Pod-scale scenario sweep: vmapped bilinear problems with randomized
-initial controls, sharded across all available devices (ICI on a real slice;
-virtual CPU devices for a dry run: run with
+"""Scenario sweep: vmapped bilinear problems with randomized initial
+controls, sharded across all available devices (the GPUs of a host; virtual
+CPU devices for a dry run: run with
 XLA_FLAGS=--xla_force_host_platform_device_count=8)."""
 
 import time
@@ -8,8 +8,7 @@ import time
 import numpy as np
 import jax
 
-if jax.devices()[0].platform != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 tolerances
 
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))

@@ -14,6 +14,10 @@ Two r5 capabilities:
   io_callback inside the device loop (the reference's intermediate-callback
   power): over budget, the solve halts with status 3 and the in-flight
   iterate preserved.
+
+Run: ``python examples/07_certified_quality_and_budgets.py [float32|float64]``.
+float32 (the default, for a GPU) runs 256 lanes with the compensated-f32
+polish to 1e-7; float64 enables x64 and polishes 8 lanes to 1e-8.
 """
 
 import os
@@ -23,7 +27,9 @@ import time
 import jax
 import numpy as np
 
-if jax.devices()[0].platform != "tpu":
+DTYPE = sys.argv[1] if len(sys.argv) > 1 else "float32"
+F32 = DTYPE == "float32"
+if not F32:
     jax.config.update("jax_enable_x64", True)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -36,14 +42,12 @@ from directtrajopt_tpu.benchmarks import (
 )
 from directtrajopt_tpu.solvers.solve import cast_problem, solve_batch_compact
 
-on_tpu = jax.devices()[0].platform == "tpu"
-B = 256 if on_tpu else 8
+B = 256 if F32 else 8
 
 # ---- certified two-stage pipeline ----------------------------------------- #
 batch = make_batched_bilinear_problems(B, N=51, feasible_start=True,
                                        taylor_order=6)
-if on_tpu:
-    batch = cast_problem(batch, jnp.float32)
+batch = cast_problem(batch, jnp.dtype(DTYPE))
 
 t0 = time.time()
 seek = solve_batch_compact(
@@ -59,10 +63,10 @@ polish = solve_batch_compact(
     carry_duals=True,                    # ...and through straggler phases
     phases=((2, None), (6, None)),
     chunk=min(256, B),
-    tol=1e-7 if on_tpu else 1e-8,
-    acceptable_tol=1e-7 if on_tpu else 1e-8,
+    tol=1e-7 if F32 else 1e-8,
+    acceptable_tol=1e-7 if F32 else 1e-8,
     mu_init=1e-5, bound_push=1e-9, bound_frac=1e-9,
-    **(dict(compensated_residuals=True) if on_tpu else {}),
+    compensated_residuals=F32,
 )
 wall = time.time() - t0
 conv = int(np.asarray(polish.converged).sum())

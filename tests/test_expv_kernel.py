@@ -1,6 +1,8 @@
-"""Closed-form bilinear window Jacobians (ops/expv_kernel.py) vs generic
-window AD — the correctness anchor for the prepare-stage fast path."""
+"""Closed-form bilinear window Jacobians and residuals (ops/expv_kernel.py)
+vs generic window AD — the correctness anchor for the prepare-stage fast
+path and the line search's residuals."""
 
+import functools
 import os
 
 import jax
@@ -10,8 +12,10 @@ import pytest
 
 import directtrajopt_tpu as dtx
 from directtrajopt_tpu.integrators.base import stack_jacobians_zk
+from directtrajopt_tpu.ops import expv_kernel
+from directtrajopt_tpu.ops.expm import expv_taylor
 from directtrajopt_tpu.ops.expv_kernel import (
-    _window_jac_pallas,
+    _res_xla,
     _window_jac_xla,
     make_window_jac,
 )
@@ -86,44 +90,6 @@ def test_closed_form_matches_jacfwd_f32_batched():
     np.testing.assert_allclose(np.asarray(fast), np.asarray(ref), atol=2e-6)
 
 
-@pytest.mark.parametrize("free_time", [True, False])
-def test_pallas_interpret_matches_xla(free_time):
-    """The Pallas kernel (interpreter mode on CPU) == the XLA recurrence."""
-    rng = np.random.default_rng(3)
-    B, K, xd, n_dr, order = 5, 7, 4, 2, 6
-    Gd = rng.normal(size=(B, xd, xd)).astype(np.float32)
-    Gv = rng.normal(size=(B, n_dr, xd, xd)).astype(np.float32)
-    u = (0.3 * rng.normal(size=(B, K, n_dr))).astype(np.float32)
-    dt = (0.1 + 0.05 * rng.random((B, K))).astype(np.float32)
-    x = rng.normal(size=(B, K, xd)).astype(np.float32)
-
-    out_k = _window_jac_pallas(
-        order, free_time, *map(jnp.asarray, (Gd, Gv, u, dt, x)), interpret=True
-    )
-    out_x = jax.vmap(
-        lambda *a: _window_jac_xla(order, free_time, *a)
-    )(*map(jnp.asarray, (Gd, Gv, u, dt, x)))
-    np.testing.assert_allclose(np.asarray(out_k), np.asarray(out_x), atol=2e-6)
-
-
-def test_pallas_interpret_odd_batch_padding():
-    """Batch not a multiple of the lane width exercises the pad path."""
-    rng = np.random.default_rng(4)
-    B, K, xd, n_dr, order = 3, 4, 3, 1, 4
-    args = (
-        rng.normal(size=(B, xd, xd)).astype(np.float32),
-        rng.normal(size=(B, n_dr, xd, xd)).astype(np.float32),
-        (0.2 * rng.normal(size=(B, K, n_dr))).astype(np.float32),
-        (0.1 + 0.02 * rng.random((B, K))).astype(np.float32),
-        rng.normal(size=(B, K, xd)).astype(np.float32),
-    )
-    out_k = _window_jac_pallas(order, True, *map(jnp.asarray, args), interpret=True)
-    out_x = jax.vmap(lambda *a: _window_jac_xla(order, True, *a))(
-        *map(jnp.asarray, args)
-    )
-    np.testing.assert_allclose(np.asarray(out_k), np.asarray(out_x), atol=2e-6)
-
-
 def test_custom_vmap_unbatched_and_batched():
     rng = np.random.default_rng(5)
     K, xd, n_dr, order = 6, 4, 2, 6
@@ -191,27 +157,6 @@ def test_residual_action_levels():
     np.testing.assert_allclose(np.asarray(out2), ref, atol=1e-12)
 
 
-def test_residual_pallas_interpret_matches_xla():
-    from directtrajopt_tpu.ops.expv_kernel import _res_pallas, _res_xla
-
-    rng = np.random.default_rng(8)
-    B, K, xd, n_dr, order = 7, 5, 4, 2, 6
-    args = tuple(
-        jnp.asarray(a.astype(np.float32))
-        for a in (
-            rng.normal(size=(B, xd, xd)),
-            rng.normal(size=(B, n_dr, xd, xd)),
-            0.3 * rng.normal(size=(B, K, n_dr)),
-            0.1 + 0.05 * rng.random((B, K)),
-            rng.normal(size=(B, K, xd)),
-            rng.normal(size=(B, K, xd)),
-        )
-    )
-    out_k = _res_pallas(order, *args, interpret=True)
-    out_x = jax.vmap(lambda *a: _res_xla(order, *a))(*args)
-    np.testing.assert_allclose(np.asarray(out_k), np.asarray(out_x), atol=2e-6)
-
-
 def test_residuals_stacked_matches_generic():
     """stack_residuals with the capability == the per-window residual()."""
     from directtrajopt_tpu.integrators.base import stack_residuals
@@ -251,42 +196,116 @@ def test_e2e_solve_matches_generic_path():
     )
 
 
-def test_kernel_jaxpr_x64_clean():
-    """The Pallas kernels must trace to i64/f64-free programs under
-    jax_enable_x64 (the suite-wide config here).
+def _lane_args(rng, B, K, xd, n_dr):
+    """Per-lane window data in the headline ranges (|u| ≤ 0.3, Δt ~ 0.1)."""
+    Gd = rng.normal(size=(B, xd, xd))
+    Gv = rng.normal(size=(B, n_dr, xd, xd))
+    u = 0.3 * rng.normal(size=(B, K, n_dr))
+    dt = 0.1 + 0.05 * rng.random((B, K))
+    x = rng.normal(size=(B, K, xd))
+    return Gd, Gv, u, dt, x
 
-    Regression: Python-int literals in BlockSpec index maps and fori_loop
-    induction variables trace as i64 under x64; Mosaic then either rejects
-    the mixed-width index arithmetic ('failed to legalize func.return' /
-    'arith.subi requires the same type') or infinitely recurses lowering the
-    i64->i32 convert. That killed every kernel-path TPU solve in a process
-    with x64 enabled — exactly the refine_residuals configuration."""
-    import re
 
-    from directtrajopt_tpu.ops.expv_kernel import _res_pallas
-    from directtrajopt_tpu.ops.riccati_kernel import _factor_solve_pallas
+def _jacfwd_ref(order, free_time, Gd, Gv, u, dt, x):
+    """f64 jacfwd of expv_taylor for every window of one lane."""
 
-    assert jax.config.jax_enable_x64  # the premise of the regression
-    rng = np.random.default_rng(0)
-    f = jnp.float32
-    a = lambda *sh: jnp.asarray(rng.standard_normal(sh), f)
+    def one(u_k, dt_k, x_k):
+        def f(x_, u_, dt_):
+            G = Gd + jnp.einsum("m,mij->ij", u_, Gv)
+            return expv_taylor(dt_ * G, x_, order=order)
 
-    K, xd, n_dr, B = 10, 4, 2, 128
-    jx = jax.make_jaxpr(
-        lambda *ar: _res_pallas(6, *ar, interpret=False)
-    )(a(B, K, xd, xd)[:, 0], a(B, n_dr, xd, xd), a(B, K, n_dr),
-      jnp.full((B, K), 0.1, f), a(B, K, xd), a(B, K, xd))
-    txt = str(jx)
-    assert "i64" not in txt and "f64" not in txt, re.findall(
-        r"[^\n]*(?:i64|f64)[^\n]*", txt
-    )[:5]
+        Jx, Ju, Jt = jax.jacfwd(f, argnums=(0, 1, 2))(x_k, u_k, dt_k)
+        parts = [Jx, Ju] + ([Jt[:, None]] if free_time else [])
+        return jnp.concatenate(parts, axis=1)
 
-    N, ns, nv, R = 11, 4, 7, 3
-    jx = jax.make_jaxpr(
-        lambda *ar: _factor_solve_pallas((1, 1, 1, 1), *ar, interpret=False)
-    )(a(B, N, ns, ns), a(B, N, ns, nv), a(B, N, nv, nv), a(B, N, ns, ns),
-      a(B, N, ns, nv), a(B, R, N, ns), a(B, R, N, nv), a(B, R, N, ns))
-    txt = str(jx)
-    assert "i64" not in txt and "f64" not in txt, re.findall(
-        r"[^\n]*(?:i64|f64)[^\n]*", txt
-    )[:5]
+    return jax.vmap(one)(u, dt, x)
+
+
+@pytest.mark.parametrize("free_time", [True, False])
+def test_vmapped_f32_matches_f64_jacfwd_odd_batch(free_time):
+    """The batched closed form in f32 (the production dtype) against f64
+    jacfwd of the Taylor chain, on an odd batch."""
+    rng = np.random.default_rng(3)
+    order = 6
+    args = _lane_args(rng, 5, 7, 4, 2)
+    out = jax.jit(jax.vmap(make_window_jac(order, free_time)))(
+        *(jnp.asarray(a, jnp.float32) for a in args)
+    )
+    ref = jax.vmap(functools.partial(_jacfwd_ref, order, free_time))(
+        *(jnp.asarray(a, jnp.float64) for a in args)
+    )
+    assert out.dtype == jnp.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-6, rtol=1e-5)
+
+
+def test_vmapped_residual_l1_f32_matches_f64():
+    """Σ|residual| through the batched closed-form residuals, f32 vs f64."""
+    from directtrajopt_tpu.integrators.base import stack_residuals_l1
+
+    trajs = [_mk_traj(seed=s) for s in range(3)]
+    integ = _mk_integ(order=6)
+    layout = trajs[0].layout
+    zb = jnp.stack([t.to_zvec().reshape(layout.N, layout.dim) for t in trajs])
+
+    def l1(dtype):
+        integ_d = jax.tree.map(
+            lambda x: x.astype(dtype) if hasattr(x, "dtype") else x, integ
+        )
+        return jax.jit(jax.vmap(lambda z: stack_residuals_l1(integ_d, layout, z)))(
+            zb.astype(dtype)
+        )
+
+    out32, out64 = l1(jnp.float32), l1(jnp.float64)
+    assert out32.shape == (3,) and out32.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(out32), np.asarray(out64), rtol=2e-6)
+
+
+def test_residual_odd_batch_f32_matches_f64():
+    rng = np.random.default_rng(9)
+    order = 6
+    Gd, Gv, u, dt, x = _lane_args(rng, 3, 5, 4, 2)
+    xn = rng.normal(size=x.shape)
+    args = (Gd, Gv, u, dt, x, xn)
+    fn = jax.vmap(expv_kernel.make_residual_action(order))
+    out = fn(*(jnp.asarray(a, jnp.float32) for a in args))
+    ref = fn(*(jnp.asarray(a, jnp.float64) for a in args))
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=2e-6)
+
+
+def test_padded_lanes_do_not_pollute():
+    """Zero pad lanes (as the compacted chunks carry) leave the real lanes'
+    Jacobians bit-identical and stay finite."""
+    rng = np.random.default_rng(11)
+    order = 6
+    args = [jnp.asarray(a, jnp.float32) for a in _lane_args(rng, 3, 6, 4, 2)]
+    padded = [jnp.concatenate([a, jnp.zeros((2,) + a.shape[1:], a.dtype)]) for a in args]
+    fn = jax.jit(jax.vmap(make_window_jac(order, True)))
+    out, out_p = fn(*args), fn(*padded)
+    np.testing.assert_array_equal(np.asarray(out_p[:3]), np.asarray(out))
+    assert np.isfinite(np.asarray(out_p)).all()
+
+
+def test_batched_solve_routes_to_closed_form(monkeypatch):
+    """Under vmap (the batched solve), the bilinear prepare stage calls the
+    closed-form recurrence, not generic jacfwd."""
+    calls = []
+
+    def spy(*a):
+        calls.append(a[0])
+        return _window_jac_xla(*a)
+
+    monkeypatch.setattr(expv_kernel, "_window_jac_xla", spy)
+    expv_kernel.make_window_jac.cache_clear()
+    try:
+        trajs = [_mk_traj(seed=s) for s in range(2)]
+        integ = _mk_integ(order=5)
+        layout = trajs[0].layout
+        zb = jnp.stack([t.to_zvec().reshape(layout.N, layout.dim) for t in trajs])
+        fast = jax.vmap(lambda z: stack_jacobians_zk(integ, layout, z))(zb)
+    finally:
+        expv_kernel.make_window_jac.cache_clear()
+    assert calls == [5]
+    ref = np.stack([
+        np.asarray(stack_jacobians_zk(integ, layout, z)) for z in zb
+    ])
+    np.testing.assert_allclose(np.asarray(fast), ref, atol=1e-13)

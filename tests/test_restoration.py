@@ -3,7 +3,7 @@
 The reference inherits robustness on infeasible/degenerate problems from
 Ipopt's restoration phase (filtered around in
 `/root/reference/src/solvers/ipopt_solver/callbacks.jl:194-200`). The
-TPU-native analog is a feasibility direction folded into the line-search
+lockstep-batch analog is a feasibility direction folded into the line-search
 trial grid plus a local-infeasibility certificate; deliberately infeasible
 problems must terminate with a *meaningful* status — not a silent iteration
 burn (VERDICT r1 item 4).

@@ -1,5 +1,5 @@
 """Riccati KKT backend vs dense backend: operator-level and end-to-end
-agreement. This is the correctness anchor for the TPU performance path."""
+agreement. This is the correctness anchor for the batched performance path."""
 
 import jax
 import jax.numpy as jnp

@@ -202,7 +202,7 @@ def test_td_error_estimate_and_n_steps_tuning():
 
     The reference integrates adaptively under tolerances
     (`time_dependent_bilinear_integrator.jl:70-132`) and its own tests
-    accept atol=1e-3 agreement (`:248-269`). The TPU-native analog is a
+    accept atol=1e-3 agreement (`:248-269`). The static-shape analog is a
     static ``n_steps`` chosen/validated against that bar: this test
     DOCUMENTS a problem class (fast-oscillating G with ~10 carrier periods
     per knot interval) where the default n_steps=10 silently

@@ -24,7 +24,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "directtrajopt_tpu"
 EXTRA = [ROOT / "bench.py", ROOT / "bench_stages.py", ROOT / "bench_sweep.py",
-         ROOT / "bench_scaling.py", ROOT / "__graft_entry__.py"]
+         ROOT / "bench_scaling.py", ROOT / "__graft_entry__.py",
+         ROOT / "chip_smoke.py", ROOT / "tools" / "polish_precision.py"]
 
 
 def _names_used(tree: ast.AST) -> set[str]:
